@@ -1,0 +1,262 @@
+"""The PyTorch port's slice end to end vs the JAX reference, on the CPU:
+fit, checkpoints, evaluate, predict, the CLI, and a jax-free import.
+
+Both packages start from the same numpy initial arrays (their random
+draws differ by design).  Fit tolerances are the reference's own for a
+kernel-vs-jnp fit (tests/test_backend_dispatch.py:120-125): final L and
+the L trace rtol 1e-4, theta atol 1e-4.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from trigenicinteractionpredictor_tpu.config import (
+    Config,
+    EngineConfig,
+    MeshConfig,
+    TrainConfig,
+)
+from trigenicinteractionpredictor_tpu.data.kuzmin import load_kuzmin_tsv
+from trigenicinteractionpredictor_tpu.data.splits import train_test_split
+from trigenicinteractionpredictor_tpu.data.synthetic import sample_synthetic_dataset
+from trigenicinteractionpredictor_tpu.eval import evaluate as jevaluate
+from trigenicinteractionpredictor_tpu.models.mmsbm import ModelState as JState
+from trigenicinteractionpredictor_tpu.ops.scoring import (
+    serve_predict_interaction as jserve,
+)
+from trigenicinteractionpredictor_tpu.train import checkpoint as jckpt
+from trigenicinteractionpredictor_tpu.train.trainer import fit as jfit
+from trigenicinteractionpredictor_tpu.utils.logging import JsonlLogger
+from trigenicinteractionpredictor_tpu_torch.eval import evaluate
+from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+from trigenicinteractionpredictor_tpu_torch.ops.scoring import serve_predict_interaction
+from trigenicinteractionpredictor_tpu_torch.train import checkpoint as tckpt
+from trigenicinteractionpredictor_tpu_torch.train.trainer import fit
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIT_RTOL = 1e-4     # reference tests/test_backend_dispatch.py:120-122
+THETA_ATOL = 1e-4   # reference tests/test_backend_dispatch.py:123-125
+QUIET = JsonlLogger(None, echo=False)
+
+
+def _split(arity=3, k=3, seed=1):
+    ds, _, _ = sample_synthetic_dataset(600, 30, k, n_ratings=2, seed=seed, arity=arity)
+    return train_test_split(ds, 0.2, seed=0)
+
+
+def _cfg(tmp, **train):
+    base = dict(k=3, sweeps=12, samples=2, likelihood_freq=4)
+    base.update(train)
+    return Config(
+        train=TrainConfig(**base),
+        engine=EngineConfig(backend="jnp"),
+        out_dir=str(tmp),
+    )
+
+
+def _init(train, k, s, seed=3):
+    st = init_state(train.n_genes, k, train.n_ratings, arity=train.arity,
+                    samples=s, seed=seed)
+    th, p = st.numpy()
+    return st, JState(theta=th, p=p)
+
+
+def _assert_fit_equal(tres, jres):
+    assert tres.sweeps_run == jres.sweeps_run
+    assert tres.ll_trace.shape == jres.ll_trace.shape
+    np.testing.assert_allclose(tres.ll_trace, jres.ll_trace, rtol=FIT_RTOL)
+    np.testing.assert_allclose(tres.final_loglik, jres.final_loglik, rtol=FIT_RTOL)
+    np.testing.assert_allclose(
+        tres.states.theta.numpy(), np.asarray(jres.states.theta), atol=THETA_ATOL
+    )
+
+
+@pytest.mark.parametrize(
+    "arity,train_kw",
+    [
+        (3, {}),
+        (2, {}),                                   # digenic family
+        (3, {"sweeps": 40, "tol": 1e9}),           # early stop, one check late
+    ],
+)
+def test_fit_matches_jax_fit(tmp_path, arity, train_kw):
+    train, _ = _split(arity=arity)
+    cfg = _cfg(tmp_path, **train_kw)
+    tinit, jinit = _init(train, 3, 2)
+    jres = jfit(cfg, train, logger=QUIET, init_states=jinit)
+    tres = fit(cfg, train, device="cpu", logger=QUIET, init_states=tinit)
+    _assert_fit_equal(tres, jres)
+    assert tres.dispatch["kernel"] == "torch" and tres.dispatch["device"] == "cpu"
+    if "tol" in train_kw:
+        assert tres.sweeps_run == 12 < cfg.train.sweeps
+
+
+def test_checkpoints_cross_read_and_resume(tmp_path):
+    """A checkpoint the port writes resumes in the JAX package and in the
+    port, and both land where an uninterrupted port fit lands; the JAX
+    package's checkpoint loads in the port and evaluates to the same
+    EvalReport."""
+    train, test = _split()
+    tinit, jinit = _init(train, 3, 2)
+    straight = fit(_cfg(tmp_path), train, device="cpu", logger=QUIET, init_states=tinit)
+
+    half = str(tmp_path / "half.npz")
+    fit(_cfg(tmp_path, sweeps=6, checkpoint_every=6), train, device="cpu",
+        logger=QUIET, init_states=tinit, checkpoint_path=half)
+    ck = jckpt.load_checkpoint(half)                       # port -> JAX
+    assert ck["sweep"] == 6 and ck["states"].theta.shape == (2, 30, 3)
+    assert json.loads(bytes(ck["extra"]["dispatch_json"]).decode())["kernel"] == "torch"
+    t_resumed = fit(_cfg(tmp_path), train, device="cpu", logger=QUIET, resume=half)
+    j_resumed = jfit(_cfg(tmp_path), train, logger=QUIET, resume=half)
+    _assert_fit_equal(t_resumed, j_resumed)
+    # the 6-sweep run also checked L at its last sweep: rows 4, 6, 8, 12
+    np.testing.assert_allclose(t_resumed.ll_trace[[0, 2, 3]], straight.ll_trace, rtol=1e-6)
+    np.testing.assert_allclose(
+        t_resumed.states.theta.numpy(), straight.states.theta.numpy(), atol=1e-6
+    )
+
+    jpath = str(tmp_path / "jax.npz")                      # JAX -> port
+    jres = jfit(_cfg(tmp_path), train, logger=QUIET, init_states=jinit,
+                checkpoint_path=jpath)
+    loaded = tckpt.load_checkpoint(jpath)
+    assert loaded["sweep"] == 12
+    np.testing.assert_array_equal(loaded["states"].theta.numpy(),
+                                  np.asarray(jres.states.theta))
+    rep = evaluate(loaded["states"], test, jres.final_loglik).to_dict()
+    want = jevaluate(jres.states, test, jres.final_loglik).to_dict()
+    assert rep.keys() == want.keys()
+    for key, val in want.items():
+        np.testing.assert_allclose(rep[key], val, rtol=1e-5, err_msg=key)
+
+
+def test_predict_matches_jax_serve(tmp_path):
+    """Scores from a port checkpoint equal the JAX package's serving path
+    (fast=False) on the same parameters."""
+    train, test = _split()
+    tinit, _ = _init(train, 3, 3)
+    path = str(tmp_path / "m.npz")
+    fit(_cfg(tmp_path, samples=3), train, device="cpu", logger=QUIET,
+        init_states=tinit, checkpoint_path=path)
+    states = tckpt.load_checkpoint(path)["states"]
+    ck = jckpt.load_checkpoint(path)
+    want = jserve(JState(jnp.asarray(ck["states"].theta), jnp.asarray(ck["states"].p)),
+                  test.triplets, fast=False)
+    got = serve_predict_interaction(states, test.triplets)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_e2e_recovers_near_bayes_auc():
+    """The reference's e2e synthetic config (tests/test_e2e_synthetic.py),
+    through the port on the CPU: the held-out ensemble AUC lands within
+    0.03 of the generating model's own AUC, the reference's bound."""
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import state_from_numpy
+    from trigenicinteractionpredictor_tpu_torch.ops.metrics import auc
+    from trigenicinteractionpredictor_tpu_torch.ops.scoring import predict_interaction
+
+    ds, theta_star, p_star = sample_synthetic_dataset(
+        4000, n_genes=50, k=4, n_ratings=2, alpha_theta=0.2, alpha_p=0.2, seed=7
+    )
+    train, test = train_test_split(ds, 0.2, seed=0)
+    cfg = Config(train=TrainConfig(k=4, sweeps=500, samples=8, likelihood_freq=50))
+    res = fit(cfg, train, device="cpu", logger=QUIET)
+    trips = torch.as_tensor(test.triplets)
+    bayes = float(auc(predict_interaction(state_from_numpy(theta_star, p_star), trips),
+                      torch.as_tensor(test.ratings)))
+    report = evaluate(res.states, test, res.final_loglik)
+    assert report.auc > bayes - 0.03, (report.auc, bayes)
+    assert np.all(np.diff(res.ll_trace, axis=0) >= -1e-5 * np.abs(res.ll_trace[:-1]))
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        {"train": {"minibatch": 64}},
+        {"train": {"anneal_beta0": 0.5}},
+        {"train": {"refine_rounds": 1}},
+        {"train": {"smem_rounds": 1}},
+        {"train": {"init_method": "spectral"}},
+        {"mesh": {"data": 2}},
+    ],
+)
+def test_unported_knobs_are_refused(tmp_path, override):
+    train, _ = _split()
+    cfg = _cfg(tmp_path, **override.get("train", {}))
+    if "mesh" in override:
+        cfg = cfg.replace(mesh=MeshConfig(**override["mesh"]))
+    with pytest.raises(NotImplementedError):
+        fit(cfg, train, device="cpu", logger=QUIET)
+
+
+def test_out_of_range_ids_are_refused(tmp_path):
+    train, _ = _split()
+    bad = train.select(np.arange(train.n_rows))
+    bad.triplets[3, 1] = train.n_genes
+    with pytest.raises(ValueError, match="gene ids"):
+        fit(_cfg(tmp_path), bad, device="cpu", logger=QUIET)
+
+
+def test_cli_fit_then_predict(tmp_path):
+    """``fit`` then ``predict`` through the port's CLI on the bundled
+    example TSV, on the CPU."""
+    from trigenicinteractionpredictor_tpu_torch.cli import main
+
+    tsv = os.path.join(REPO, "datasets", "example_trigenic.tsv")
+    out = str(tmp_path / "run")
+    assert main(["fit", "-f", tsv, "-k", "3", "-i", "20", "-s", "2", "-n", "5",
+                 "-o", out, "--device", "cpu", "--checkpoint-every", "10"]) == 0
+    report = json.load(open(os.path.join(out, "report.json")))
+    assert report["sweeps"] == 20 and 0.0 <= report["auc"] <= 1.0
+    for name in ("config.json", "events.jsonl", "model.ckpt.npz",
+                 os.path.join("params", "theta_s1.txt"),
+                 os.path.join("params", "likelihood.txt")):
+        assert os.path.exists(os.path.join(out, name)), name
+    events = [json.loads(line)["event"] for line in open(os.path.join(out, "events.jsonl"))]
+    assert "dispatch" in events and events[-1] == "fit_done"
+
+    preds = str(tmp_path / "preds.tsv")
+    assert main(["predict", "-f", tsv, "--checkpoint", os.path.join(out, "model.ckpt.npz"),
+                 "-o", preds, "--device", "cpu"]) == 0
+    rows = open(preds).read().splitlines()
+    assert rows[0].split("\t") == ["gene_a", "gene_b", "gene_c", "p_interaction"]
+    scores = np.array([float(r.split("\t")[-1]) for r in rows[1:]])
+    ck = jckpt.load_checkpoint(os.path.join(out, "model.ckpt.npz"))
+    ds = load_kuzmin_tsv(tsv)
+    want = jserve(JState(jnp.asarray(ck["states"].theta), jnp.asarray(ck["states"].p)),
+                  ds.triplets, fast=False)
+    np.testing.assert_allclose(scores, want, atol=1e-6)  # written with 6 decimals
+
+
+def test_cuda_request_without_gpu_names_cpu_flag():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from trigenicinteractionpredictor_tpu_torch.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve_device("cuda")
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port leaves jax out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import trigenicinteractionpredictor_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert len(names) >= 14, names\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]

@@ -1,0 +1,238 @@
+"""The EM sweep in plain PyTorch (counterpart of the reference's
+``ops/em.py``): the anchor every kernel of the port is held to.
+
+Math, for one observation t = (i, j, e, r) (see the reference module):
+
+    omega_t(k,l,m) = theta[i,k] theta[j,l] theta[e,m] p[k,l,m,r] / D_t
+    D_t            = sum_{klm} theta[i,k] theta[j,l] theta[e,m] p[k,l,m,r]
+
+Factorized so the per-row K^3 responsibility is never materialized:
+
+    T[b,k,l]  = sum_m theta3[b,m] p[k,l,m,r_b]
+    A1[b,k]   = sum_l theta2[b,l] T[b,k,l];   A2[b,l] = sum_k theta1[b,k] T[b,k,l]
+    D[b]      = sum_k theta1[b,k] A1[b,k]
+    A3[b,m]   = sum_kl theta1 theta2 p[k,l,m,r_b]
+    theta_hat = scatter-add of theta_pos * A_pos * w/D by gene id
+    p_hat     = p * ((theta1 theta2 w/D)^T @ (theta3 x onehot(r)))
+    L         = sum_b w_b log D_b
+
+Every function takes either one state (theta [G,K]) or a restart-stacked
+ensemble (theta [S,G,K]); the leading axis rides through as a batch
+dimension.  Weight-0 rows are inert.  On CUDA, float32 matmuls run in true
+float32 (``device.resolve_device`` turns TF32 off).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from trigenicinteractionpredictor_tpu_torch.models.mmsbm import ModelState
+
+_EPS = 1e-30
+
+
+class Batch(NamedTuple):
+    """Device-side rows: int32/int64 triplets [B, arity], ratings [B] and
+    float32 weights [B] (0 marks padding)."""
+
+    triplets: torch.Tensor
+    ratings: torch.Tensor
+    weights: torch.Tensor
+
+
+class SweepStats(NamedTuple):
+    """Unnormalized sufficient statistics of one sweep (leading [S] on the
+    ensemble form)."""
+
+    theta_hat: torch.Tensor  # f32 [..., G, K]
+    p_hat: torch.Tensor      # f32 [..., K, ..., K, R]
+    loglik: torch.Tensor     # f32 [...] -- L of the *pre-update* state
+
+
+def make_batch(triplets, ratings, weights, device) -> Batch:
+    """Host arrays -> a contiguous device Batch (int32 ids, as the kernels
+    take them)."""
+    return Batch(
+        triplets=torch.as_tensor(triplets, dtype=torch.int32, device=device).contiguous(),
+        ratings=torch.as_tensor(ratings, dtype=torch.int32, device=device).contiguous(),
+        weights=torch.as_tensor(weights, dtype=torch.float32, device=device).contiguous(),
+    )
+
+
+def _gather(theta: torch.Tensor, triplets: torch.Tensor):
+    """Per-position theta rows: one [..., B, K] tensor per gene slot."""
+    idx = triplets.long()
+    return tuple(theta[..., idx[:, pos], :] for pos in range(idx.shape[1]))
+
+
+def _select_rating(x: torch.Tensor, r: torch.Tensor, row_dim: int) -> torch.Tensor:
+    """x[..., b, ..., r_b] with rows on ``row_dim``: squeeze the rating axis."""
+    shape = [1] * x.dim()
+    shape[row_dim] = r.shape[0]
+    idx = r.long().view(shape)
+    return torch.take_along_dim(x, idx, dim=-1).squeeze(-1)
+
+
+def _scatter_rows(theta: torch.Tensor, vals, triplets: torch.Tensor):
+    """sum_b vals[pos][..., b, :] into [..., G, K] rows by gene id."""
+    out = torch.zeros_like(theta)
+    idx = triplets.long()
+    for pos, v in enumerate(vals):
+        out.index_add_(-2, idx[:, pos], v)
+    return out
+
+
+def em_sufficient_stats(theta, p, batch: Batch) -> SweepStats:
+    """E-step + M-accumulate over one batch (no normalization).
+
+    Dispatches on the tuple width: arity 3 below, arity 2 (the digenic
+    family, p[..., K, K, R]) in :func:`pair_em_sufficient_stats`.
+    """
+    if batch.triplets.shape[1] == 2:
+        return pair_em_sufficient_stats(theta, p, batch)
+    K = theta.shape[-1]
+    R = p.shape[-1]
+    lead = theta.shape[:-2]
+    B = batch.triplets.shape[0]
+    rd = len(lead)  # row axis of the per-row tensors
+    r = batch.ratings
+    w = batch.weights.to(theta.dtype)
+
+    th1, th2, th3 = _gather(theta, batch.triplets)
+    # T_all[..., b, k, l, r] = sum_m th3[b, m] p[k, l, m, r]
+    p_m = p.movedim(-2, -4).reshape(lead + (K, K * K * R))
+    T = _select_rating(
+        torch.matmul(th3, p_m).reshape(lead + (B, K, K, R)), r, rd
+    )
+    A1 = torch.einsum("...bkl,...bl->...bk", T, th2)
+    A2 = torch.einsum("...bkl,...bk->...bl", T, th1)
+    D = (th1 * A1).sum(-1)
+    W = (th1.unsqueeze(-1) * th2.unsqueeze(-2)).reshape(lead + (B, K * K))
+    A3 = _select_rating(
+        torch.matmul(W, p.reshape(lead + (K * K, K * R))).reshape(lead + (B, K, R)),
+        r, rd,
+    )
+
+    scale = w / (D + _EPS)
+    sc = scale.unsqueeze(-1)
+    theta_hat = _scatter_rows(
+        theta, (th1 * A1 * sc, th2 * A2 * sc, th3 * A3 * sc), batch.triplets
+    )
+
+    V = W * sc                                                   # [..., B, K^2]
+    onehot = torch.nn.functional.one_hot(r.long(), R).to(theta.dtype)  # [B, R]
+    th3r = (th3.unsqueeze(-1) * onehot.unsqueeze(-2)).reshape(lead + (B, K * R))
+    cross = torch.matmul(V.transpose(-1, -2), th3r)              # [..., K^2, K*R]
+    p_hat = p * cross.reshape(p.shape)
+
+    loglik = (w * torch.log(D + _EPS)).sum(-1)
+    return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=loglik)
+
+
+def pair_em_sufficient_stats(theta, p, batch: Batch) -> SweepStats:
+    """Arity-2 sweep stats (digenic family): p is [..., K, K, R].
+
+        A1[b,k] = sum_l theta2[b,l] p[k,l,r_b];  A2[b,l] = sum_k theta1[b,k] p[k,l,r_b]
+        D[b]    = sum_k theta1[b,k] A1[b,k]
+        p_hat   = p * sum_{b: r_b=r} theta1 theta2 w/D
+    """
+    K = theta.shape[-1]
+    R = p.shape[-1]
+    lead = theta.shape[:-2]
+    B = batch.triplets.shape[0]
+    rd = len(lead)
+    r = batch.ratings
+    w = batch.weights.to(theta.dtype)
+
+    th1, th2 = _gather(theta, batch.triplets)
+    p_l = p.transpose(-3, -2).reshape(lead + (K, K * R))
+    A1 = _select_rating(torch.matmul(th2, p_l).reshape(lead + (B, K, R)), r, rd)
+    A2 = _select_rating(
+        torch.matmul(th1, p.reshape(lead + (K, K * R))).reshape(lead + (B, K, R)),
+        r, rd,
+    )
+    D = (th1 * A1).sum(-1)
+
+    scale = w / (D + _EPS)
+    sc = scale.unsqueeze(-1)
+    theta_hat = _scatter_rows(theta, (th1 * A1 * sc, th2 * A2 * sc), batch.triplets)
+
+    onehot = torch.nn.functional.one_hot(r.long(), R).to(theta.dtype)
+    th2r = (th2.unsqueeze(-1) * onehot.unsqueeze(-2)).reshape(lead + (B, K * R))
+    cross = torch.matmul((th1 * sc).transpose(-1, -2), th2r)     # [..., K, K*R]
+    p_hat = p * cross.reshape(p.shape)
+
+    loglik = (w * torch.log(D + _EPS)).sum(-1)
+    return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=loglik)
+
+
+def normalize_from_stats(
+    state: ModelState,
+    stats: SweepStats,
+    degrees: torch.Tensor,
+    theta_norm: str = "degree",
+) -> ModelState:
+    """M-step normalization.
+
+    theta rows divide by the gene's training degree d(g) (``"degree"``) or
+    by their own sum (``"rowsum"``); rows with a zero divisor keep their old
+    value.  p cells normalize over ratings; cells with no mass (<= _EPS)
+    keep their old value.
+    """
+    if theta_norm == "rowsum":
+        denom = stats.theta_hat.sum(-1)
+    elif theta_norm == "degree":
+        denom = degrees.to(state.theta.dtype)
+    else:
+        raise ValueError(f"unknown theta_norm {theta_norm!r}")
+    theta_new = stats.theta_hat / torch.clamp(denom, min=_EPS).unsqueeze(-1)
+    theta = torch.where((denom > 0).unsqueeze(-1), theta_new, state.theta)
+
+    p_mass = stats.p_hat.sum(-1, keepdim=True)
+    p = torch.where(p_mass > _EPS, stats.p_hat / (p_mass + _EPS), state.p)
+    return ModelState(theta=theta, p=p)
+
+
+def em_step(state: ModelState, batch: Batch, degrees: torch.Tensor):
+    """One full EM sweep: (new_state, loglik of the *old* state)."""
+    stats = em_sufficient_stats(state.theta, state.p, batch)
+    return normalize_from_stats(state, stats, degrees), stats.loglik
+
+
+def log_likelihood(state: ModelState, batch: Batch, row_chunk: int = 0):
+    """Weighted sum_b w_b log P(r_b | genes) under ``state`` (both arities).
+
+    ``row_chunk`` > 0 sums over row chunks (exact: L is additive over rows),
+    bounding the [.., B, K^2 R] intermediate.
+    """
+    B = batch.triplets.shape[0]
+    if row_chunk and B > row_chunk:
+        return sum(
+            log_likelihood(
+                state, Batch(*(x[i : i + row_chunk] for x in batch))
+            )
+            for i in range(0, B, row_chunk)
+        )
+    theta, p = state.theta, state.p
+    K = theta.shape[-1]
+    R = p.shape[-1]
+    lead = theta.shape[:-2]
+    rd = len(lead)
+    w = batch.weights.to(theta.dtype)
+    if batch.triplets.shape[1] == 2:
+        th1, th2 = _gather(theta, batch.triplets)
+        p_l = p.transpose(-3, -2).reshape(lead + (K, K * R))
+        A1 = _select_rating(
+            torch.matmul(th2, p_l).reshape(lead + (B, K, R)), batch.ratings, rd
+        )
+        D = (th1 * A1).sum(-1)
+        return (w * torch.log(D + _EPS)).sum(-1)
+    th1, th2, th3 = _gather(theta, batch.triplets)
+    p_m = p.movedim(-2, -4).reshape(lead + (K, K * K * R))
+    T = _select_rating(
+        torch.matmul(th3, p_m).reshape(lead + (B, K, K, R)), batch.ratings, rd
+    )
+    D = torch.einsum("...bk,...bkl,...bl->...b", th1, T, th2)
+    return (w * torch.log(D + _EPS)).sum(-1)
