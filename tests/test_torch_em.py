@@ -206,7 +206,8 @@ def test_k1_sweep_plan_range():
         ("cpu", 3, 10, "torch"),
         ("cuda", 3, 10, "cuda-em-sweep"),
         ("cuda", 3, 20, "cuda-em-sweep"),
-        ("cuda", 3, 25, "torch"),      # outside K1's range
+        ("cuda", 3, 25, "cuda-em-sweep-large-k"),  # outside K1's range: K3
+        ("cuda", 3, 80, "torch"),      # past K3's range: the plain sweep
         ("cuda", 2, 10, "torch"),      # digenic: plain, as the reference
     ],
 )

@@ -251,7 +251,9 @@ def test_port_imports_no_jax():
         "import trigenicinteractionpredictor_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 14, names\n"
+        "assert len(names) >= 17, names\n"
+        "for n in ('analysis', 'ops.em_large_k', 'train.driver'):\n"
+        "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"

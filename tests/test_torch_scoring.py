@@ -96,9 +96,34 @@ def test_serve_matches_jax_serve():
 
 
 def test_score_kernel_range():
-    """K2 takes K = 1..32 with no cap on G or S."""
-    assert all(score.score_smem(k) is not None for k in range(1, 33))
-    assert score.score_smem(33) is None and score.score_smem(0) is None
+    """K2 takes K = 1..115 with no cap on G or S: all of p[s] in one chunk
+    up to K = 26 (two blocks per SM), chunks of k-slices past it."""
+    for k in range(1, 116):
+        k_chunk, smem = score.score_plan(k)
+        assert 1 <= k_chunk <= k and smem <= 232_448
+        assert k_chunk == k or k > 26
+        if k <= 64:
+            assert smem <= 232_448 // 2
+    assert score.score_plan(116) is None and score.score_plan(0) is None
+
+
+@pytest.mark.parametrize(
+    "device_type,ensemble,arity,k,fast,expected",
+    [
+        ("cuda", True, 3, 10, True, "cuda-score"),
+        ("cuda", True, 3, 50, True, "cuda-score"),   # the K-sweep job's K = 50 unit
+        ("cuda", True, 3, 64, True, "cuda-score"),
+        ("cuda", True, 3, 200, True, "torch"),       # past K2's plan: plain, by rule
+        ("cuda", True, 3, 50, False, "torch"),
+        ("cuda", False, 3, 50, True, "torch"),       # single state
+        ("cuda", True, 2, 50, True, "torch"),        # digenic
+        ("cpu", True, 3, 50, True, "torch"),
+    ],
+)
+def test_serve_route(device_type, ensemble, arity, k, fast, expected):
+    """serve_predict_interaction serves a K = 50 ensemble on CUDA through K2
+    (it raised there past K = 32); the plain scorer only by explicit rule."""
+    assert scoring.serve_route(device_type, ensemble, arity, k, fast) == expected
 
 
 METRIC_CASES = {

@@ -1,17 +1,21 @@
 """Command-line entry points of the port (counterpart of the reference's
-``cli.py``, for ``fit``, ``predict`` and ``synth``):
+``cli.py``, for ``fit``, ``cv``, ``sweep``, ``predict``, ``analyze`` and
+``synth``):
 
     python -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv -k 10 -i 400 -s 10 -o runs/fit
+    python -m trigenicinteractionpredictor_tpu_torch sweep -f data.tsv --k-grid 5,10,25,50 -s 10 -o runs/sweep
+    python -m trigenicinteractionpredictor_tpu_torch cv -f data.tsv -k 10 --folds 5 -o runs/cv
     python -m trigenicinteractionpredictor_tpu_torch predict -f data.tsv --checkpoint runs/fit/model.ckpt.npz
+    python -m trigenicinteractionpredictor_tpu_torch analyze --checkpoint runs/fit/model.ckpt.npz -f data.tsv
     python -m trigenicinteractionpredictor_tpu_torch synth -o synth.npz -n 100000 -g 1000
 
 Flags are the reference's, plus ``--device`` (default ``cuda``; a missing
 GPU is an error that names ``--device cpu``).  ``--backend`` and
-``--precision`` are accepted and recorded: the sweep kernel is exact
+``--precision`` are accepted and recorded: the sweep kernels are exact
 float32 in both precision modes.  Knobs this engine does not run yet
 (stepwise, annealing, refine, split-merge, spectral init, mesh axes > 1)
-are refused by the trainer, never ignored.  ``cv``, ``sweep``, ``analyze``,
-``bench`` and ``verify-parity`` stay with the JAX package for now.
+are refused by the trainer, never ignored.  ``bench`` and
+``verify-parity`` stay with the JAX package for now.
 """
 
 from __future__ import annotations
@@ -99,7 +103,7 @@ def _base_parser(sub: argparse.ArgumentParser) -> None:
     )
 
 
-def _make_config(args):
+def _make_config(args, n_folds: int = 1):
     from trigenicinteractionpredictor_tpu.config import (
         Config,
         DataConfig,
@@ -140,7 +144,7 @@ def _make_config(args):
             smem_sweeps=args.smem_sweeps,
             init_method=args.init,
         ),
-        split=SplitConfig(test_fraction=args.test_fraction, n_folds=1, seed=args.seed),
+        split=SplitConfig(test_fraction=args.test_fraction, n_folds=n_folds, seed=args.seed),
         mesh=MeshConfig(data=args.mesh_data, ensemble=args.mesh_ensemble,
                         model=args.mesh_model),
         engine=EngineConfig(
@@ -199,10 +203,36 @@ def cmd_fit(args) -> int:
     return 0
 
 
+def _run_grid(args, k_grid: List[int], n_folds: int) -> int:
+    from trigenicinteractionpredictor_tpu_torch.device import resolve_device
+    from trigenicinteractionpredictor_tpu_torch.train.driver import merge_report, run_units
+
+    dev = resolve_device(args.device)
+    cfg = _make_config(args, n_folds=n_folds)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    with open(os.path.join(cfg.out_dir, "config.json"), "w") as fh:
+        fh.write(cfg.to_json())
+    ds = _load_dataset(args.file, cfg)
+    run_units(cfg, ds, k_grid=k_grid, device=dev)
+    report = merge_report(cfg.out_dir)
+    print(json.dumps(report["summary"]))
+    return 0
+
+
+def cmd_cv(args) -> int:
+    return _run_grid(args, k_grid=[args.k], n_folds=args.folds)
+
+
+def cmd_sweep(args) -> int:
+    k_grid = [int(x) for x in args.k_grid.split(",")]
+    return _run_grid(args, k_grid=k_grid, n_folds=args.folds)
+
+
 def cmd_predict(args) -> int:
     from trigenicinteractionpredictor_tpu_torch.device import resolve_device
     from trigenicinteractionpredictor_tpu_torch.ops.scoring import (
         serve_predict_interaction,
+        serve_route,
     )
     from trigenicinteractionpredictor_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -234,6 +264,36 @@ def cmd_predict(args) -> int:
         "out": out,
         "rows_per_sec": round(len(scores) / max(score_wall, 1e-9), 1),
         "device": str(dev),
+        "kernel": serve_route(dev.type, states.theta.dim() == 3, ds.arity, states.k),
+    }))
+    return 0
+
+
+def cmd_analyze(args) -> int:
+    from trigenicinteractionpredictor_tpu.config import DataConfig
+    from trigenicinteractionpredictor_tpu_torch.analysis import (
+        analyze_checkpoint,
+        write_analysis,
+    )
+    from trigenicinteractionpredictor_tpu_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    tuples = labels = None
+    if args.file:
+        class _DataOnly:
+            data = DataConfig(
+                path=args.file, p_cutoff=args.p_cutoff, tau_cutoff=args.tau_cutoff,
+                tau_mode=args.tau_mode, mutant_type=args.mutant_type,
+            )
+
+        ds = _load_dataset(args.file, _DataOnly)
+        tuples, labels = ds.triplets, ds.ratings
+    report = analyze_checkpoint(args.checkpoint, tuples=tuples, labels=labels, device=dev)
+    write_analysis(report, args.out or "analysis.json")
+    print(json.dumps({
+        k: report[k]
+        for k in ("n_samples", "best_sample", "loglik_spread", "group_stability")
+        if k in report
     }))
     return 0
 
@@ -264,10 +324,42 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_fit.add_argument("--resume", default=None, help="checkpoint to resume from")
     p_fit.set_defaults(fn=cmd_fit)
 
+    p_cv = subs.add_parser("cv", help="k-fold cross-validation at fixed K")
+    _base_parser(p_cv)
+    p_cv.add_argument("--folds", type=int, default=5)
+    p_cv.set_defaults(fn=cmd_cv)
+
+    p_sw = subs.add_parser("sweep", help="K-grid sweep with best-L selection")
+    _base_parser(p_sw)
+    p_sw.add_argument("--k-grid", default="5,10,25,50")
+    p_sw.add_argument("--folds", type=int, default=1)
+    p_sw.set_defaults(fn=cmd_sweep)
+
     p_pr = subs.add_parser("predict", help="score triplets from a checkpoint")
     _base_parser(p_pr)
     p_pr.add_argument("--checkpoint", required=True)
     p_pr.set_defaults(fn=cmd_predict)
+
+    p_an = subs.add_parser(
+        "analyze", help="cross-restart agreement/stability report from a checkpoint"
+    )
+    p_an.add_argument("--checkpoint", required=True)
+    p_an.add_argument(
+        "-f", "--file", default=None,
+        help="optional probe dataset (TSV or .npz) for score agreement + AUC",
+    )
+    p_an.add_argument("-o", "--out", default=None, help="output JSON path")
+    p_an.add_argument("--tau-mode", choices=["abs", "negative"], default="abs")
+    p_an.add_argument("--p-cutoff", type=float, default=0.05)
+    p_an.add_argument("--tau-cutoff", type=float, default=0.08)
+    p_an.add_argument(
+        "--mutant-type", choices=["trigenic", "digenic"], default="trigenic"
+    )
+    p_an.add_argument(
+        "--device", default="cuda",
+        help="torch device: 'cuda' (default; fails without a GPU) or 'cpu'",
+    )
+    p_an.set_defaults(fn=cmd_analyze)
 
     p_sy = subs.add_parser("synth", help="generate a synthetic packed dataset")
     p_sy.add_argument("-o", "--out", required=True)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface for Hopper (``sm_90a``), at first use, into the package's
+At first use, one ``nvcc`` per source, all started together, compiles
+every source for Hopper (``sm_90a``) into an object file; one more links
+them into a shared library with a plain C interface in the package's
 ``build/`` directory (listed in ``.gitignore``); ``ctypes`` loads it.  The
 library name carries a digest of the sources and flags, so an edited
 source is never served by a stale build.  Nothing here runs at import.
@@ -23,10 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,8 +34,11 @@ _SIGNATURES = {
     # theta, p, trip, rat, w, theta_hat, p_hat, ll,
     # S, B, G, K, R, tile, rows_per_block, threads, smem_bytes, stream
     "tip_em_sweep": [_P] * 8 + [_I] * 9 + [_P],
-    # theta, p, trip, out, S, B, G, K, R, ir, threads, smem_bytes, stream
-    "tip_score": [_P] * 4 + [_I] * 8 + [_P],
+    # theta, p, trip, rat, w, theta_hat, p_hat, ll, scale,
+    # S, B, G, K, R, splits, estep_smem, cross_threads, cross_smem, stream
+    "tip_em_sweep_large_k": [_P] * 9 + [_I] * 9 + [_P],
+    # theta, p, trip, out, S, B, G, K, R, ir, k_chunk, threads, smem_bytes, stream
+    "tip_score": [_P] * 4 + [_I] * 9 + [_P],
 }
 
 _lib = None
@@ -73,21 +76,35 @@ def build() -> Path:
         build_info.setdefault("seconds", 0.0)
         build_info.setdefault("cached", True)
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"obj_{digest.hexdigest()[:16]}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources:
+        obj = obj_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    reports = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+    for cmd, out, rc in reports:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+    res = subprocess.run(link, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+            f"nvcc link failed ({res.returncode}): {' '.join(link)}\n"
             f"{res.stdout}\n{res.stderr}"
         )
     os.replace(tmp, lib_path)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     build_info.update(
         seconds=time.perf_counter() - t0,
         cached=False,
-        ptxas=(res.stdout + res.stderr).strip(),
+        ptxas="\n".join(out.strip() for _, out, _ in reports),
     )
     return lib_path
 

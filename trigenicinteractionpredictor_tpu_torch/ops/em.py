@@ -84,12 +84,29 @@ def _scatter_rows(theta: torch.Tensor, vals, triplets: torch.Tensor):
     return out
 
 
-def em_sufficient_stats(theta, p, batch: Batch) -> SweepStats:
+def _row_chunks(batch: Batch, row_chunk: int):
+    """The batch as consecutive slices of at most ``row_chunk`` rows."""
+    B = batch.triplets.shape[0]
+    return [Batch(*(x[i : i + row_chunk] for x in batch)) for i in range(0, B, row_chunk)]
+
+
+def em_sufficient_stats(theta, p, batch: Batch, row_chunk: int = 0) -> SweepStats:
     """E-step + M-accumulate over one batch (no normalization).
 
     Dispatches on the tuple width: arity 3 below, arity 2 (the digenic
     family, p[..., K, K, R]) in :func:`pair_em_sufficient_stats`.
+    ``row_chunk`` > 0 sums the statistics of either arity over chunks of
+    that many rows (the reference's ``row_chunk``): exact, since every
+    statistic is a sum over rows, and it bounds the [..., B, K^2 R]
+    intermediates by the chunk.
     """
+    if row_chunk and batch.triplets.shape[0] > row_chunk:
+        chunks = iter(_row_chunks(batch, row_chunk))
+        acc = em_sufficient_stats(theta, p, next(chunks))
+        for mb in chunks:
+            for total, part in zip(acc, em_sufficient_stats(theta, p, mb)):
+                total.add_(part)
+        return acc
     if batch.triplets.shape[1] == 2:
         return pair_em_sufficient_stats(theta, p, batch)
     K = theta.shape[-1]
@@ -209,12 +226,7 @@ def log_likelihood(state: ModelState, batch: Batch, row_chunk: int = 0):
     """
     B = batch.triplets.shape[0]
     if row_chunk and B > row_chunk:
-        return sum(
-            log_likelihood(
-                state, Batch(*(x[i : i + row_chunk] for x in batch))
-            )
-            for i in range(0, B, row_chunk)
-        )
+        return sum(log_likelihood(state, mb) for mb in _row_chunks(batch, row_chunk))
     theta, p = state.theta, state.p
     K = theta.shape[-1]
     R = p.shape[-1]

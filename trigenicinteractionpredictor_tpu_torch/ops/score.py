@@ -5,12 +5,14 @@
 for every row of ``triplets`` under restart-stacked thetas [S,G,K] and ps
 [S,K,K,K,R].  On a CPU tensor it runs the plain version,
 :func:`ensemble_score_reference`; on a CUDA tensor it launches the kernel
-or raises.  Unlike the TPU kernel there is no G cap.
+or raises.  Unlike the TPU kernel there is no G cap, and p is staged in
+chunks of k-slices, so K runs up to what one k-slice and the rows' theta
+leave of shared memory (:func:`score_plan`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,17 +23,25 @@ from trigenicinteractionpredictor_tpu_torch.ops.scoring import (
 )
 
 KERNEL_NAME = "cuda-score"
-MAX_K = 32
 THREADS = 128
 _SMEM_LIMIT = 232_448 - 1024
 
 
-def score_smem(k: int) -> Optional[int]:
-    """Dynamic shared-memory bytes at this K, or None outside 1..MAX_K."""
-    if not 1 <= k <= MAX_K:
+def score_plan(k: int) -> Optional[Tuple[int, int]]:
+    """(k-slices of p staged per chunk, dynamic shared-memory bytes) at this
+    K: as many [K, K rounded up to 4] slices as fit beside the block's theta
+    rows in half the shared memory (two blocks per SM; all of p[s] up to
+    K = 26), else in all of it; None where not even one fits (K > 115) or
+    K < 1."""
+    if k < 1:
         return None
-    smem = 4 * (k**3 + 3 * k * THREADS)
-    return smem if smem <= _SMEM_LIMIT else None
+    theta_bytes = 4 * 3 * k * THREADS
+    slice_bytes = 4 * k * (-(-k // 4) * 4)
+    for limit in (_SMEM_LIMIT // 2, _SMEM_LIMIT):
+        k_chunk = min(k, (limit - theta_bytes) // slice_bytes)
+        if k_chunk >= 1:
+            return k_chunk, theta_bytes + k_chunk * slice_bytes
+    return None
 
 
 def ensemble_score_reference(thetas, ps, triplets, interact_rating: int = 1):
@@ -53,9 +63,10 @@ def ensemble_score(thetas, ps, triplets, interact_rating: int = 1):
     _build.require("triplets", triplets, torch.int32, (B, 3), thetas.device)
     if not 0 <= interact_rating < R:
         raise ValueError(f"interact_rating {interact_rating} outside [0, {R})")
-    smem = score_smem(K)
-    if smem is None:
-        raise ValueError(f"{KERNEL_NAME} does not take K={K} (1..{MAX_K})")
+    plan = score_plan(K)
+    if plan is None:
+        raise ValueError(f"{KERNEL_NAME} does not take K={K} (see score_plan)")
+    k_chunk, smem = plan
     out = torch.empty(B, dtype=torch.float32, device=thetas.device)
     if B == 0:
         return out
@@ -63,7 +74,7 @@ def ensemble_score(thetas, ps, triplets, interact_rating: int = 1):
     with torch.cuda.device(thetas.device):
         err = lib.tip_score(
             thetas.data_ptr(), ps.data_ptr(), triplets.data_ptr(), out.data_ptr(),
-            S, B, G, K, R, interact_rating, THREADS, smem,
+            S, B, G, K, R, interact_rating, k_chunk, THREADS, smem,
             torch.cuda.current_stream(thetas.device).cuda_stream,
         )
     _build.check(err, KERNEL_NAME)

@@ -48,6 +48,21 @@ def ensemble_predict_interaction(
     return predict_interaction(states, triplets, interact_rating).mean(0)
 
 
+def serve_route(device_type: str, ensemble: bool, arity: int, k: int,
+                fast: bool = True) -> str:
+    """The scorer :func:`serve_predict_interaction` runs: the K2 kernel's
+    name for restart-stacked trigenic states on CUDA with ``fast`` at a K
+    inside K2's plan (K <= 115), else ``"torch"`` (the plain scorer).  A
+    shape rule decided before any launch, as the reference's
+    ``_fit_score_tile`` rule; never a fallback after a failed launch."""
+    from trigenicinteractionpredictor_tpu_torch.ops import score
+
+    if (fast and ensemble and arity == 3 and device_type == "cuda"
+            and score.score_plan(k) is not None):
+        return score.KERNEL_NAME
+    return "torch"
+
+
 def serve_predict_interaction(
     states: ModelState,
     triplets,
@@ -57,11 +72,12 @@ def serve_predict_interaction(
 ) -> np.ndarray:
     """Score many rows (numpy in, numpy out) on the states' device.
 
-    Restart-stacked trigenic states on CUDA go through the K2 kernel
-    (ops/score.py) with ``fast``; ``fast=False``, single states, the digenic
-    family and the CPU take the plain scorer.  Rows go in blocks of
-    ``block_rows``; results stay on the device until one copy at the end.
-    The kernel is exact float32, so both paths agree to rounding.
+    The scorer is :func:`serve_route`'s: the K2 kernel (ops/score.py) for
+    restart-stacked trigenic states on CUDA with ``fast``; the plain scorer
+    for ``fast=False``, single states, the digenic family, the CPU and K
+    past K2's plan.  Rows go in blocks of ``block_rows``; results stay on
+    the device until one copy at the end.  The kernel is exact float32, so
+    both paths agree to rounding.
     """
     trips = np.asarray(triplets)
     n = trips.shape[0]
@@ -73,7 +89,7 @@ def serve_predict_interaction(
     device = states.device
     ensemble = states.theta.dim() == 3
     use_kernel = (
-        fast and ensemble and trips.shape[1] == 3 and device.type == "cuda"
+        serve_route(device.type, ensemble, trips.shape[1], states.k, fast) != "torch"
     )
     if use_kernel:
         from trigenicinteractionpredictor_tpu_torch.ops.score import ensemble_score

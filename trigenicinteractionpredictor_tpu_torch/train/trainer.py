@@ -2,7 +2,9 @@
 classic branch of the reference's ``train/trainer.py::fit``).
 
 All S restarts ride a leading axis of one state; each sweep is one call of
-the dispatched stats function (K1 on CUDA) plus ``normalize_from_stats``.
+the dispatched stats function (K1 or K3 on CUDA; the plain sweep, chunked
+by ``cfg.engine.jnp_row_chunk`` rows, elsewhere) plus
+``normalize_from_stats``.
 The host loop runs the sweeps between likelihood checks, records every
 ``likelihood_freq`` sweeps the L of the state *before* the chunk's last
 sweep (the reference's semantics), early-stops on |dL| < tol one check
@@ -127,14 +129,17 @@ def fit(
         raise ValueError(f"gene ids must lie in [0, {G}) and ratings in [0, {R})")
 
     if stats_fn is None:
-        stats_fn = resolve_stats_fn(dev, arity, G, K, S, n_ratings=R)
-    # Both engine precision modes run exact float32 here: K1 uses no
-    # tensor cores and the plain path runs with TF32 off.
+        stats_fn = resolve_stats_fn(
+            dev, arity, G, K, S, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk
+        )
+    # Both engine precision modes run exact float32 here: the kernels use
+    # no tensor cores and the plain path runs with TF32 off.
     dispatch_info = {
         "kernel": getattr(stats_fn, "kernel_name", None)
         or getattr(stats_fn, "__name__", type(stats_fn).__name__),
         "tile_b": 0,
         "bdr_group": 0,
+        "row_chunk": int(getattr(stats_fn, "row_chunk", 0)),
         "precision": cfg.engine.precision,
         "backend": cfg.engine.backend,
         "device": str(dev),
