@@ -24,7 +24,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                ``synth`` data at the headline shape (S = 10, 20 sweeps per
                unit, likelihood every 10), then all rows served from the
                K = 50 unit's checkpoint, with the counts set to 0 just
-               before and read just after.
+               before and read just after;
+8. the large-G fit -- each large-G kernel against its plain version and
+               float64, with its time, the plain time and K1's time at the
+               same shape: K4 (em_bdg) + K5b (plan_scatter) at N = 131,072,
+               G = 100,000, K = 10, R = 2, S = 10; K5a (em_streams) + K5b at
+               G = 500,000, S = 10; K6 (em_streams + plan_scatter, S = 1) at
+               G = 100,000; K4 + K5b at G = 10,000, S = 50.  Then ``synth
+               -g 100000`` -> ``fit -s 10 -i 30`` -> ``predict`` through the
+               CLI (route cuda-em-bdg), a 30-sweep ``fit`` on the bd-plan
+               route (G = 500,000, S = 10) and on the large-G route
+               (G = 100,000, S = 1), each with the counts set to 0 just
+               before and read just after; then a small fit (G = 6000)
+               through each of the three routes against the plain fit.
 
 The line before the last holds the kernels' record as JSON (``launches``
 sums the two counted paths); the last line is ``{"ok": true, "device":
@@ -42,6 +54,8 @@ import tempfile
 import time
 
 HEADLINE = dict(n=131_072, genes=1000, k=10, ratings=2, samples=10)
+LARGE_G_SWEEPS = 30   # the CLI large-G job
+ROUTE_SWEEPS = 30     # the bd-plan and large-G fits
 K3_GRID = (25, 50, 64)
 SWEEP_GRID = "5,10,25,50"
 SWEEP_SWEEPS = 20
@@ -108,6 +122,227 @@ def _max_drop(trace) -> float:
     if len(trace) < 2:
         return 0.0
     return float(np.max((trace[:-1] - trace[1:]) / np.abs(trace[:-1])))
+
+
+def _by_restarts(fn, thetas, ps, batch, group: int = 10):
+    """``fn``'s SweepStats over restart groups, concatenated: the stats are
+    per restart, and groups bound the plain version's memory at S = 50."""
+    import torch
+
+    parts = [fn(thetas[i:i + group], ps[i:i + group], batch)
+             for i in range(0, thetas.shape[0], group)]
+    return type(parts[0])(*(torch.cat(x) for x in zip(*parts)))
+
+
+def _max_err(pairs) -> float:
+    return max(float((a - b).abs().max()) for a, b in pairs)
+
+
+def large_g_phase(card: str, dev, cli_main) -> list:
+    """Phase 8 (see the module docstring); returns the new kernels'
+    records for the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch import Config
+    from trigenicinteractionpredictor_tpu_torch.data import (
+        sample_synthetic_dataset,
+        train_test_split,
+    )
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+    from trigenicinteractionpredictor_tpu_torch.ops import (
+        dispatch,
+        em_bd,
+        em_bdg,
+        em_bdr,
+        em_large_g,
+        score,
+    )
+    from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
+    from trigenicinteractionpredictor_tpu_torch.train.checkpoint import load_checkpoint
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, fit
+
+    N, K, R = HEADLINE["n"], HEADLINE["k"], HEADLINE["ratings"]
+    wb1 = em_bdg.bdg_plan(K, R)[1]
+    rec = {}
+
+    # 8a. each kernel against its plain version and float64, with K1's time
+    for tag, g, S, kind in (("K4+K5b", 100_000, 10, "bdg"), ("K5a+K5b", 500_000, 10, "bd"),
+                            ("K6", 100_000, 1, "large"), ("K4+K5b", 10_000, 50, "bdg")):
+        shape = f"N={N}, G={g}, K={K}, R={R}, S={S}"
+        ds, _, _ = sample_synthetic_dataset(N, g, K, n_ratings=R, seed=5)
+        st = init_state(g, K, R, samples=S, seed=6, device=dev)
+        th, p = st.theta, st.p
+        plain_batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+        if kind == "bdg":
+            g1 = em_bdg.make_g1_plan(ds.triplets, g, wb1=wb1)
+            trip, rat, w = em_bdg.apply_g1_order(g1, ds.triplets, ds.ratings, ds.weights)
+            plan = em_large_g.make_scatter_plan(trip, g, positions=(1, 2))
+            batch = make_batch(trip, rat, w, dev, scatter=plan, g1=g1)
+            whole = lambda: em_bdg.bdg_em_ensemble_stats(th, p, batch, wb1=wb1)  # noqa: E731
+            whole_ref = lambda t_, p_, b_: em_bdg.bdg_em_ensemble_stats_reference(  # noqa: E731
+                t_, p_, b_, wb1=wb1)
+            estep = lambda: em_bdg.bdg_estep(th, p, batch, wb1)  # noqa: E731
+            estep_ref = lambda: em_bdg.bdg_estep_reference(th, p, batch, wb1)  # noqa: E731
+        else:
+            plan = em_large_g.make_scatter_plan(ds.triplets, g)
+            batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev, scatter=plan)
+            fn = em_bd.bd_em_ensemble_stats if kind == "bd" else em_large_g.large_g_ensemble_stats
+            whole = lambda: fn(th, p, batch)  # noqa: E731
+            whole_ref = em_bd.bd_em_ensemble_stats_reference
+            estep = lambda: em_bd.em_streams(th, p, batch)  # noqa: E731
+            estep_ref = lambda: em_bd.em_streams_reference(th, p, batch)  # noqa: E731
+        out, ref = whole(), whole_ref(th, p, batch)
+        f64 = _by_restarts(whole_ref, th.double(), p.double(), batch)
+        torch.cuda.synchronize()
+        _check_stats(f"{tag} {shape}", out, ref, f64)
+        del out, ref, f64
+        # Each kernel alone against its plain version on the same inputs.
+        got_e, want_e = estep(), estep_ref()
+        scatter_args = (batch.scatter_perm, batch.scatter_lid, batch.scatter_offsets,
+                        em_bd.DEFAULT_WB, g, K)
+        got_s = em_bd.plan_scatter(want_e[0], *scatter_args)
+        want_s = em_bd.plan_scatter_reference(want_e[0], *scatter_args)
+        torch.cuda.synchronize()
+        e_err = _max_err(zip(got_e[:-1], want_e[:-1]))
+        s_err = _max_err([(got_s, want_s)])
+        e_ll = float(((got_e[-1] - want_e[-1]).abs() / want_e[-1].abs()).max())
+        print(f"[{tag}] {shape}: E-step max abs err {e_err:.3e} (streams, theta_hat, "
+              f"p_hat), loglik rel {e_ll:.3e}; plan_scatter max abs err {s_err:.3e}")
+        assert e_ll <= LOGLIK_RTOL
+        streams = want_e[0]
+        del got_e, want_e, got_s, want_s
+        t = {
+            "kernel": _time_ms(whole, 10),
+            "plain": _time_ms(lambda: whole_ref(th, p, batch), 3),
+            "estep": _time_ms(estep, 10),
+            "estep_plain": _time_ms(estep_ref, 3),
+            "scatter": _time_ms(lambda: em_bd.plan_scatter(streams, *scatter_args), 20),
+            "scatter_plain": _time_ms(
+                lambda: em_bd.plan_scatter_reference(streams, *scatter_args), 3),
+            "k1": _time_ms(lambda: em_bdr.em_ensemble_stats(th, p, plain_batch), 10),
+        }
+        print(f"[{tag}] {shape}: sweep-stats {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, K1 {t['k1']:.4f} ms; E-step {t['estep']:.4f} ms "
+              f"(plain {t['estep_plain']:.4f}); plan_scatter {t['scatter']:.4f} ms "
+              f"(plain {t['scatter_plain']:.4f}) ({card})")
+        rec[(kind, g, S)] = dict(t, e_err=e_err, s_err=s_err)
+        del st, th, p, batch, plain_batch, streams, ds
+        torch.cuda.empty_cache()
+
+    counted = {em_bdg.ESTEP_NAME: em_bdg.bdg_estep, em_bd.SCATTER_NAME: em_bd.plan_scatter,
+               em_bd.STREAMS_NAME: em_bd.em_streams, em_bdr.KERNEL_NAME: em_bdr.em_ensemble_stats,
+               score.KERNEL_NAME: score.ensemble_score}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # 8b. the large-G job through the CLI: synth -> fit -> predict
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth.npz")
+        assert cli_main(["synth", "-o", data, "-n", str(N), "-g", "100000", "-k", str(K),
+                         "--ratings", str(R), "--seed", "0"]) == 0
+        out_dir = os.path.join(tmp, "fit")
+        pred = os.path.join(tmp, "pred.tsv")
+        reset()
+        t_job = time.perf_counter()
+        assert cli_main(["fit", "-f", data, "-k", str(K), "-s", "10", "-i", str(LARGE_G_SWEEPS),
+                         "-n", "10", "-o", out_dir, "--device", "cuda"]) == 0
+        job_s = time.perf_counter() - t_job
+        assert cli_main(["predict", "-f", data, "--checkpoint",
+                         os.path.join(out_dir, "model.ckpt.npz"), "-o", pred,
+                         "--device", "cuda"]) == 0
+        job_counts = counts()
+        with open(os.path.join(out_dir, "events.jsonl")) as fh:
+            events = [json.loads(line) for line in fh]
+        with open(os.path.join(out_dir, "report.json")) as fh:
+            report = json.load(fh)
+        trace = load_checkpoint(os.path.join(out_dir, "model.ckpt.npz"))["ll_trace"]
+        with open(pred) as fh:
+            probs = np.array([float(line.rsplit("\t", 1)[1]) for line in fh.readlines()[1:]])
+    disp = next(e for e in events if e["event"] == "dispatch")
+    done = next(e for e in events if e["event"] == "fit_done")
+    drop = _max_drop(trace)
+    print(f"[large-G job] dispatch {json.dumps(disp, sort_keys=True)}")
+    print(f"[large-G job] launches {job_counts}; L trace (best restart per check) "
+          f"{trace.max(axis=1).tolist()}, largest relative L drop {drop:.3e}; AUC "
+          f"{report['auc']:.4f}; fit {done['sweeps'] / done['wall_s']:.2f} sweeps/s, "
+          f"{done['triplets_per_sec'] * 10:.4e} restart-triplet updates/s (S=10, "
+          f"{done['sweeps']} sweeps); fit command {job_s:.2f} s ({card})")
+    assert disp["kernel"] == em_bdg.KERNEL_NAME, disp
+    assert job_counts[em_bdg.ESTEP_NAME] >= LARGE_G_SWEEPS
+    assert job_counts[em_bd.SCATTER_NAME] >= LARGE_G_SWEEPS
+    assert job_counts[score.KERNEL_NAME] >= 1
+    assert trace.shape == (LARGE_G_SWEEPS // 10, 10) and np.isfinite(trace).all()
+    assert drop <= LL_DROP_RTOL and np.isfinite(report["auc"])
+    assert probs.shape == (N,) and probs.min() >= 0.0 and probs.max() <= 1.0
+
+    # 8c. the bd-plan and large-G routes through fit, at full size
+    route_counts = {}
+    for route, g, S in ((em_bd.KERNEL_NAME, 500_000, 10), (em_large_g.KERNEL_NAME, 100_000, 1)):
+        ds, _, _ = sample_synthetic_dataset(N, g, K, n_ratings=R, seed=7)
+        train, _ = train_test_split(ds, 0.2, seed=0)
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, k=K, sweeps=ROUTE_SWEEPS, samples=S, likelihood_freq=10, seed=0))
+        reset()
+        res = fit(cfg, train, device=dev, logger=JsonlLogger(None, echo=False))
+        route_counts[route] = counts()
+        drop = _max_drop(res.ll_trace)
+        print(f"[{route} fit] G={g}, S={S}: kernel {res.dispatch['kernel']}, launches "
+              f"{route_counts[route]}, {res.sweeps_run / res.wall_seconds:.2f} sweeps/s, "
+              f"{res.triplets_per_sec * S:.4e} restart-triplet updates/s, largest "
+              f"relative L drop {drop:.3e} ({card})")
+        assert res.dispatch["kernel"] == route, res.dispatch
+        assert route_counts[route][em_bd.STREAMS_NAME] >= ROUTE_SWEEPS
+        assert route_counts[route][em_bd.SCATTER_NAME] >= ROUTE_SWEEPS
+        assert drop <= LL_DROP_RTOL and np.isfinite(res.final_loglik).all()
+        del ds, train, res
+        torch.cuda.empty_cache()
+
+    # 8d. a small fit through each new route against the plain fit
+    small, _, _ = sample_synthetic_dataset(4096, 6000, K, n_ratings=R, seed=8)
+    quiet = JsonlLogger(None, echo=False)
+    for route in (em_bdg.KERNEL_NAME, em_bd.KERNEL_NAME, em_large_g.KERNEL_NAME):
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, k=K, sweeps=20, samples=1 if route == em_large_g.KERNEL_NAME else 4,
+            likelihood_freq=5, seed=5))
+        via_kernel = fit(cfg, small, device=dev, logger=quiet,
+                         stats_fn=dispatch.stats_fn_for(route, K, R))
+        via_plain = fit(cfg, small, device=dev, logger=quiet, stats_fn=dispatch.plain_stats)
+        assert via_kernel.dispatch["kernel"] == route
+        np.testing.assert_allclose(via_kernel.final_loglik, via_plain.final_loglik,
+                                   rtol=FIT_RTOL)
+        print(f"[{route}] small fit (G=6000), kernel vs plain final L within rtol "
+              f"{FIT_RTOL:g}: {via_kernel.final_loglik.tolist()} vs "
+              f"{via_plain.final_loglik.tolist()}")
+
+    src = "trigenicinteractionpredictor_tpu_torch/csrc/"
+    ref = "trigenicinteractionpredictor_tpu/ops/"
+    bdg, bd, s1 = rec[("bdg", 100_000, 10)], rec[("bd", 500_000, 10)], rec[("large", 100_000, 1)]
+    bd_n, lg_n = route_counts[em_bd.KERNEL_NAME], route_counts[em_large_g.KERNEL_NAME]
+    return [
+        {"name": "em_bdg", "route": "cuda", "source": src + "em_bdg.cu",
+         "replaces": ref + "pallas_em_bdg.py:289", "launches": job_counts[em_bdg.ESTEP_NAME],
+         "max_abs_err": bdg["e_err"], "ms": bdg["estep"], "plain_ms": bdg["estep_plain"]},
+        {"name": "plan_scatter", "route": "cuda", "source": src + "plan_scatter.cu",
+         "replaces": ref + "pallas_em_bd.py:364",
+         "launches": job_counts[em_bd.SCATTER_NAME] + bd_n[em_bd.SCATTER_NAME],
+         "max_abs_err": max(r["s_err"] for r in rec.values()), "ms": bdg["scatter"],
+         "plain_ms": bdg["scatter_plain"]},
+        {"name": "em_streams", "route": "cuda", "source": src + "em_streams.cu",
+         "replaces": ref + "pallas_em_bd.py:215", "launches": bd_n[em_bd.STREAMS_NAME],
+         "max_abs_err": bd["e_err"], "ms": bd["estep"], "plain_ms": bd["estep_plain"]},
+        {"name": "large_g (em_streams + plan_scatter at S = 1)", "route": "cuda",
+         "source": src + "em_streams.cu", "replaces": ref + "pallas_em_large.py:275",
+         "launches": lg_n[em_bd.STREAMS_NAME], "max_abs_err": max(s1["e_err"], s1["s_err"]),
+         "ms": s1["kernel"], "plain_ms": s1["plain"]},
+    ]
 
 
 def main() -> int:
@@ -347,6 +582,9 @@ def main() -> int:
     assert served50.min() >= 0.0 and served50.max() <= 1.0
     print(f"[sweep] served {N} rows from the K=50 unit through {score.KERNEL_NAME}")
 
+    # 8. the large-G fit
+    large_g_kernels = large_g_phase(card, dev, cli_main)
+
     kernels = [
         {
             "name": "em_sweep", "route": "cuda",
@@ -369,6 +607,7 @@ def main() -> int:
             "launches": sweep_launches["em_sweep_large_k"], "max_abs_err": k3_err,
             "ms": k3_times[50][0], "plain_ms": k3_times[50][1],
         },
+        *large_g_kernels,
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,7 +22,14 @@ import torch
 from trigenicinteractionpredictor_tpu_torch import Config
 from trigenicinteractionpredictor_tpu_torch.data import sample_synthetic_dataset
 from trigenicinteractionpredictor_tpu_torch.models.mmsbm import ModelState, init_state
-from trigenicinteractionpredictor_tpu_torch.ops import em_bdr, em_large_k, score
+from trigenicinteractionpredictor_tpu_torch.ops import (
+    em_bd,
+    em_bdg,
+    em_bdr,
+    em_large_g,
+    em_large_k,
+    score,
+)
 from trigenicinteractionpredictor_tpu_torch.ops.dispatch import plain_stats
 from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
 from trigenicinteractionpredictor_tpu_torch.ops.scoring import serve_predict_interaction
@@ -199,3 +206,149 @@ def test_fit_through_k3_matches_plain_fit(dev):
     np.testing.assert_allclose(via_kernel.ll_trace, via_plain.ll_trace, rtol=1e-4)
     trace = via_kernel.ll_trace
     assert np.all(trace[1:] >= trace[:-1] - 1e-5 * np.abs(trace[:-1]))
+
+
+def _large_g_case(n, g, k, r, s, seed, dev, hub_pos=None):
+    """Rows padded with weight-0 rows to a multiple of 512; with
+    ``hub_pos``, gene 7 takes that position in 30% of the rows (a run far
+    longer than plan_scatter's split limit)."""
+    ds, st = _case(n, g, k, r, s, seed, dev, pad_to=-(-n // 512) * 512)
+    trip = ds.triplets.copy()
+    if hub_pos is not None:
+        rng = np.random.default_rng(seed)
+        trip[rng.random(len(trip)) < 0.3, hub_pos] = 7
+    return trip, ds.ratings, ds.weights, st
+
+
+def _assert_close_stats(out, ref):
+    """As the K1 tests, with theta_hat also allowed float32 rounding at its
+    magnitude (rtol 1e-6): a hub gene's row sums ~450 rows to ~200."""
+    np.testing.assert_allclose(out.theta_hat.cpu(), ref.theta_hat.cpu(), rtol=1e-6,
+                               atol=1e-4)
+    np.testing.assert_allclose(out.p_hat.cpu(), ref.p_hat.cpu(), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(out.loglik.cpu(), ref.loglik.cpu(), rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "k,r,s,g,hub_pos",
+    [(4, 2, 1, 5000, 1), (10, 2, 10, 3000, 0), (10, 3, 10, 700, 2), (6, 2, 50, 2000, None),
+     (20, 3, 2, 900, 1)],
+)
+def test_bd_plan_kernels_match_plain(dev, k, r, s, g, hub_pos):
+    """K5a (em_streams) and K5b (plan_scatter) against their plain versions,
+    alone and as the bd-plan / large-G sweep: S = 1, 10 and 50, R = 2 and
+    3, weight-0 rows, empty gene blocks (G = 5000 over ~1500 rows) and a
+    hub gene.  plan_scatter is deterministic: two launches agree bit for
+    bit."""
+    trip, rat, w, st = _large_g_case(1500, g, k, r, s, seed=51, dev=dev, hub_pos=hub_pos)
+    plan = em_large_g.make_scatter_plan(trip, g, wb=64)
+    tb = make_batch(trip, rat, w, dev, scatter=plan)
+    n_streams, n_scatter = em_bd.em_streams.launches, em_bd.plan_scatter.launches
+    streams, p_hat, ll = em_bd.em_streams(st.theta, st.p, tb)
+    want_streams, want_p, want_ll = em_bd.em_streams_reference(st.theta, st.p, tb)
+    torch.cuda.synchronize()
+    assert em_bd.em_streams.launches == n_streams + 1
+    np.testing.assert_allclose(streams.cpu(), want_streams.cpu(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(p_hat.cpu(), want_p.cpu(), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(ll.cpu(), want_ll.cpu(), rtol=1e-5)
+    args = (tb.scatter_perm, tb.scatter_lid, tb.scatter_offsets, 64, g, k)
+    got = em_bd.plan_scatter(want_streams, *args)
+    again = em_bd.plan_scatter(want_streams, *args)
+    want = em_bd.plan_scatter_reference(want_streams, *args)
+    torch.cuda.synchronize()
+    assert em_bd.plan_scatter.launches == n_scatter + 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-5)
+    for fn in (em_bd.bd_em_ensemble_stats, em_large_g.large_g_ensemble_stats):
+        _assert_close_stats(fn(st.theta, st.p, tb, wb=64),
+                            em_bd.bd_em_ensemble_stats_reference(st.theta, st.p, tb, wb=64))
+
+
+def test_plan_scatter_splits_a_hub_run(dev):
+    """One gene holds 33,000 of 60,000 slots (129 pieces of 256) beside a
+    spread of others; the sum matches a float64 plain scatter."""
+    rng = np.random.default_rng(3)
+    g, k, s = 3000, 5, 4
+    trip = rng.integers(0, g, size=(20_000, 3)).astype(np.int32)
+    trip[:13_000, 0] = 1234
+    trip[:, 1] = 1234
+    plan = em_large_g.make_scatter_plan(trip, g, wb=512)
+    streams = torch.as_tensor(rng.random((3, 20_000, s * k)), dtype=torch.float32,
+                              device=dev)
+    off = torch.as_tensor(plan.offsets, device=dev)
+    perm = torch.as_tensor(plan.perm, device=dev)
+    lid = torch.as_tensor(plan.lid, device=dev)
+    got = em_bd.plan_scatter(streams, perm, lid, off, 512, g, k)
+    want = em_bd.plan_scatter_reference(streams.double(), perm, lid, off, 512, g, k)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=2e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "k,r,s,g,hub_pos",
+    [(4, 2, 1, 5000, 0), (10, 2, 10, 3000, 0), (10, 3, 10, 700, 1), (6, 2, 50, 2000, None),
+     (20, 3, 2, 900, 0), (20, 2, 3, 6000, 2)],
+)
+def test_bdg_kernel_matches_plain(dev, k, r, s, g, hub_pos):
+    """K4 against its plain version on g1-ordered rows, alone and with the
+    2-position plan scatter: S = 1, 10 and 50, R = 2 and 3, weight-0 rows,
+    empty gene blocks, a hub gene at position 1 (a g1 block split across
+    many pieces) and elsewhere, and the gene-block width the plan gives at
+    each (K, R) as well as a narrow one."""
+    trip, rat, w, st = _large_g_case(1500, g, k, r, s, seed=53, dev=dev, hub_pos=hub_pos)
+    for wb1 in {em_bdg.bdg_plan(k, r)[1], 32}:
+        g1 = em_bdg.make_g1_plan(trip, g, wb1=wb1)
+        t2, r2, w2 = em_bdg.apply_g1_order(g1, trip, rat, w)
+        plan = em_large_g.make_scatter_plan(t2, g, wb=64, positions=(1, 2))
+        tb = make_batch(t2, r2, w2, dev, scatter=plan, g1=g1)
+        launches = em_bdg.bdg_estep.launches
+        streams, th1, p_hat, ll = em_bdg.bdg_estep(st.theta, st.p, tb, wb1)
+        want = em_bdg.bdg_estep_reference(st.theta, st.p, tb, wb1)
+        torch.cuda.synchronize()
+        assert em_bdg.bdg_estep.launches == launches + 1
+        np.testing.assert_allclose(streams.cpu(), want[0].cpu(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(th1.cpu(), want[1].cpu(), rtol=1e-6, atol=1e-4)
+        np.testing.assert_allclose(p_hat.cpu(), want[2].cpu(), rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(ll.cpu(), want[3].cpu(), rtol=1e-5)
+        _assert_close_stats(
+            em_bdg.bdg_em_ensemble_stats(st.theta, st.p, tb, wb1=wb1, wb=64),
+            em_bdg.bdg_em_ensemble_stats_reference(st.theta, st.p, tb, wb1=wb1, wb=64),
+        )
+
+
+def test_large_g_kernels_refuse_what_they_do_not_take(dev):
+    trip, rat, w, st = _large_g_case(600, 800, 4, 2, 2, seed=1, dev=dev)
+    plain = make_batch(trip, rat, w, dev)
+    for fn in (em_bd.bd_em_ensemble_stats, em_large_g.large_g_ensemble_stats,
+               em_bdg.bdg_em_ensemble_stats):
+        with pytest.raises(ValueError):
+            fn(st.theta, st.p, plain)
+    plan = em_large_g.make_scatter_plan(trip, 800, wb=64)
+    tb = make_batch(trip, rat, w, dev, scatter=plan)
+    with pytest.raises(ValueError):  # plan of another block width
+        em_bd.plan_scatter(torch.zeros((3, len(trip), 8), device=dev), tb.scatter_perm,
+                           tb.scatter_lid, tb.scatter_offsets, 128, 800, 4)
+    big = init_state(800, 21, 2, samples=2, seed=2, device=dev)
+    with pytest.raises(ValueError):
+        em_bd.em_streams(big.theta, big.p, tb)
+
+
+@pytest.mark.parametrize("route", ["cuda-em-bdg", "cuda-em-bd-plan", "cuda-em-large-g"])
+def test_fit_through_large_g_routes_matches_plain_fit(dev, route):
+    """G = 6000 through each plan route (the trainer builds and attaches
+    the plans) against the plain fit, from the same seeded init."""
+    from trigenicinteractionpredictor_tpu_torch.ops import dispatch
+
+    s = 1 if route == "cuda-em-large-g" else 3
+    ds, _ = _case(4096, 6000, 4, 2, 1, seed=3, dev=dev)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=4, sweeps=12, samples=s, likelihood_freq=4, seed=5,
+    ))
+    quiet = JsonlLogger(None, echo=False)
+    via_kernel = fit(cfg, ds, device=dev, logger=quiet,
+                     stats_fn=dispatch.stats_fn_for(route, 4, 2))
+    via_plain = fit(cfg, ds, device=dev, logger=quiet, stats_fn=plain_stats)
+    assert via_kernel.dispatch["kernel"] == route
+    np.testing.assert_allclose(via_kernel.final_loglik, via_plain.final_loglik, rtol=1e-4)
+    np.testing.assert_allclose(via_kernel.ll_trace, via_plain.ll_trace, rtol=1e-4)

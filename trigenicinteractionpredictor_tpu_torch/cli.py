@@ -10,8 +10,11 @@
     python -m trigenicinteractionpredictor_tpu_torch synth -o synth.npz -n 100000 -g 1000
 
 Flags are the reference's, plus ``--device`` (default ``cuda``; a missing
-GPU is an error that names ``--device cpu``).  ``--backend`` and
-``--precision`` are accepted and recorded: the sweep kernels are exact
+GPU is an error that names ``--device cpu``).  ``--backend jnp`` runs the
+plain PyTorch sweep on any device; ``auto`` and ``pallas`` (the default
+``auto``) run the CUDA kernel that ``ops/dispatch.py::route`` picks for
+the shape, including the large-G routes with their host plans.
+``--precision`` is accepted and recorded: the sweep kernels are exact
 float32 in both precision modes.  Knobs this engine does not run yet
 (stepwise, annealing, refine, split-merge, spectral init, mesh axes > 1)
 are refused by the trainer, never ignored.  ``bench`` and
@@ -61,7 +64,8 @@ def _base_parser(sub: argparse.ArgumentParser) -> None:
     sub.add_argument("--mesh-model", type=int, default=1, help="(1 only)")
     sub.add_argument(
         "--backend", choices=["auto", "jnp", "pallas"], default="auto",
-        help="recorded in the run's dispatch record",
+        help="'jnp': the plain PyTorch sweep on any device; 'auto'/'pallas': "
+             "the CUDA kernel the shape routes to (recorded in the dispatch record)",
     )
     sub.add_argument(
         "--precision", choices=["fast", "strict"], default="fast",

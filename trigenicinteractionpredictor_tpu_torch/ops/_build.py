@@ -4,8 +4,9 @@ At first use, one ``nvcc`` per source, all started together, compiles
 every source for Hopper (``sm_90a``) into an object file; one more links
 them into a shared library with a plain C interface in the package's
 ``build/`` directory (listed in ``.gitignore``); ``ctypes`` loads it.  The
-library name carries a digest of the sources and flags, so an edited
-source is never served by a stale build.  Nothing here runs at import.
+library name carries a digest of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edited source is never served by a
+stale build.  Nothing here runs at import.
 
 Each C entry takes device pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()``; :func:`check` raises when it is not 0.
@@ -39,6 +40,14 @@ _SIGNATURES = {
     "tip_em_sweep_large_k": [_P] * 9 + [_I] * 9 + [_P],
     # theta, p, trip, out, S, B, G, K, R, ir, k_chunk, threads, smem_bytes, stream
     "tip_score": [_P] * 4 + [_I] * 9 + [_P],
+    # theta, p, trip, rat, w, streams, p_hat, ll,
+    # S, B, G, K, R, tile, rows_per_block, threads, smem_bytes, stream
+    "tip_em_streams": [_P] * 8 + [_I] * 9 + [_P],
+    # theta, p, trip, rat, w, g1_lid, g1_off, streams, theta_hat, p_hat, ll,
+    # S, B, G, K, R, Q1, wb1, tile, piece_rows, threads, smem_bytes, stream
+    "tip_em_bdg": [_P] * 11 + [_I] * 11 + [_P],
+    # vals, perm, lid, off, out, part, L, Q, wb, SK, K, G, piece, threads, stream
+    "tip_plan_scatter": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 _lib = None
@@ -68,7 +77,7 @@ def build() -> Path:
     ptxas report (registers, shared memory, spills) in ``build_info``."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libtip_kernels_{digest.hexdigest()[:16]}.so"

@@ -24,7 +24,7 @@ float32 (``device.resolve_device`` turns TF32 off).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,11 +35,23 @@ _EPS = 1e-30
 
 class Batch(NamedTuple):
     """Device-side rows: int32/int64 triplets [B, arity], ratings [B] and
-    float32 weights [B] (0 marks padding)."""
+    float32 weights [B] (0 marks padding).
+
+    The plan fields are None except on the large-G routes (the reference's
+    ``Batch.scatter_*`` and ``g1_*``; see ``ops/em_large_g.py`` and
+    ``ops/em_bdg.py``).  Unlike the reference's, the port's plans hold no
+    pad slots and no per-tile tables: a gene-sorted slot order with CSR
+    offsets per gene block.
+    """
 
     triplets: torch.Tensor
     ratings: torch.Tensor
     weights: torch.Tensor
+    scatter_perm: Optional[torch.Tensor] = None     # int32 [P*B] slots, gene-sorted
+    scatter_lid: Optional[torch.Tensor] = None      # int32 [P*B] gene - block * wb
+    scatter_offsets: Optional[torch.Tensor] = None  # int32 [Q+1] CSR per gene block
+    g1_lid: Optional[torch.Tensor] = None           # int32 [B] g1 - block * wb1
+    g1_offsets: Optional[torch.Tensor] = None       # int32 [Q1+1] CSR of rows
 
 
 class SweepStats(NamedTuple):
@@ -51,13 +63,25 @@ class SweepStats(NamedTuple):
     loglik: torch.Tensor     # f32 [...] -- L of the *pre-update* state
 
 
-def make_batch(triplets, ratings, weights, device) -> Batch:
+def make_batch(triplets, ratings, weights, device, scatter=None, g1=None) -> Batch:
     """Host arrays -> a contiguous device Batch (int32 ids, as the kernels
-    take them)."""
+    take them).  ``scatter`` (a ScatterPlan) and ``g1`` (a G1Plan, rows
+    already in its order) attach the large-G plans."""
+
+    def dev_i32(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=device).contiguous()
+
+    plans = {}
+    if scatter is not None:
+        plans.update(scatter_perm=dev_i32(scatter.perm), scatter_lid=dev_i32(scatter.lid),
+                     scatter_offsets=dev_i32(scatter.offsets))
+    if g1 is not None:
+        plans.update(g1_lid=dev_i32(g1.lid1), g1_offsets=dev_i32(g1.offsets))
     return Batch(
-        triplets=torch.as_tensor(triplets, dtype=torch.int32, device=device).contiguous(),
-        ratings=torch.as_tensor(ratings, dtype=torch.int32, device=device).contiguous(),
+        triplets=dev_i32(triplets),
+        ratings=dev_i32(ratings),
         weights=torch.as_tensor(weights, dtype=torch.float32, device=device).contiguous(),
+        **plans,
     )
 
 
@@ -87,7 +111,8 @@ def _scatter_rows(theta: torch.Tensor, vals, triplets: torch.Tensor):
 def _row_chunks(batch: Batch, row_chunk: int):
     """The batch as consecutive slices of at most ``row_chunk`` rows."""
     B = batch.triplets.shape[0]
-    return [Batch(*(x[i : i + row_chunk] for x in batch)) for i in range(0, B, row_chunk)]
+    rows = (batch.triplets, batch.ratings, batch.weights)
+    return [Batch(*(x[i : i + row_chunk] for x in rows)) for i in range(0, B, row_chunk)]
 
 
 def em_sufficient_stats(theta, p, batch: Batch, row_chunk: int = 0) -> SweepStats:
@@ -109,6 +134,15 @@ def em_sufficient_stats(theta, p, batch: Batch, row_chunk: int = 0) -> SweepStat
         return acc
     if batch.triplets.shape[1] == 2:
         return pair_em_sufficient_stats(theta, p, batch)
+    vals, p_hat, loglik = position_marginals(theta, p, batch)
+    theta_hat = _scatter_rows(theta, vals, batch.triplets)
+    return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=loglik)
+
+
+def position_marginals(theta, p, batch: Batch):
+    """The arity-3 sweep without its theta_hat scatter: (the three per-row
+    position marginals th_pos * A_pos * w/D, each [..., B, K]; p_hat; L).
+    The large-G routes scatter the marginals through their plans."""
     K = theta.shape[-1]
     R = p.shape[-1]
     lead = theta.shape[:-2]
@@ -134,9 +168,7 @@ def em_sufficient_stats(theta, p, batch: Batch, row_chunk: int = 0) -> SweepStat
 
     scale = w / (D + _EPS)
     sc = scale.unsqueeze(-1)
-    theta_hat = _scatter_rows(
-        theta, (th1 * A1 * sc, th2 * A2 * sc, th3 * A3 * sc), batch.triplets
-    )
+    vals = (th1 * A1 * sc, th2 * A2 * sc, th3 * A3 * sc)
 
     V = W * sc                                                   # [..., B, K^2]
     onehot = torch.nn.functional.one_hot(r.long(), R).to(theta.dtype)  # [B, R]
@@ -145,7 +177,7 @@ def em_sufficient_stats(theta, p, batch: Batch, row_chunk: int = 0) -> SweepStat
     p_hat = p * cross.reshape(p.shape)
 
     loglik = (w * torch.log(D + _EPS)).sum(-1)
-    return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=loglik)
+    return vals, p_hat, loglik
 
 
 def pair_em_sufficient_stats(theta, p, batch: Batch) -> SweepStats:

@@ -28,8 +28,16 @@ MAX_K = 20
 THREADS = 256
 # 227 KB of opt-in shared memory per block on sm_90, less the kernel's
 # static reduction buffer and a margin.
-_SMEM_LIMIT = 232_448 - 1024
-_TILES = (64, 32, 16, 8)
+SMEM_LIMIT = 232_448 - 1024
+TILES = (64, 32, 16, 8)
+
+
+def tile_smem_bytes(k: int, n_ratings: int, tile: int) -> int:
+    """Shared memory of the tile buffers (``csrc/em_tile.cuh`` carve):
+    p[s] and its cross-stats, then per-row vectors of stride tile + 1."""
+    rs = tile + 1
+    floats = 2 * n_ratings * k**3 + k * k * rs + 6 * k * rs + 2 * rs
+    return 4 * (floats + 4 * rs)
 
 
 def sweep_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
@@ -38,11 +46,9 @@ def sweep_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
     p[s] and its cross-stats do not fit one block's shared memory."""
     if not 1 <= k <= MAX_K:
         return None
-    for tile in _TILES:
-        rs = tile + 1
-        floats = 2 * n_ratings * k**3 + k * k * rs + 6 * k * rs + 2 * rs
-        smem = 4 * (floats + 4 * rs)
-        if smem <= _SMEM_LIMIT:
+    for tile in TILES:
+        smem = tile_smem_bytes(k, n_ratings, tile)
+        if smem <= SMEM_LIMIT:
             return tile, smem
     return None
 

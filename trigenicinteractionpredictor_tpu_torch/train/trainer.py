@@ -2,9 +2,11 @@
 classic branch of the reference's ``train/trainer.py::fit``).
 
 All S restarts ride a leading axis of one state; each sweep is one call of
-the dispatched stats function (K1 or K3 on CUDA; the plain sweep, chunked
-by ``cfg.engine.jnp_row_chunk`` rows, elsewhere) plus
-``normalize_from_stats``.
+the dispatched stats function (a kernel route on CUDA, chosen by
+``cfg.engine.backend`` and the shape; the plain sweep, chunked by
+``cfg.engine.jnp_row_chunk`` rows, elsewhere or with ``backend="jnp"``)
+plus ``normalize_from_stats``.  The large-G routes get their host plans,
+built once per fit, on the batch.
 The host loop runs the sweeps between likelihood checks, records every
 ``likelihood_freq`` sweeps the L of the state *before* the chunk's last
 sweep (the reference's semantics), early-stops on |dL| < tol one check
@@ -37,6 +39,8 @@ from trigenicinteractionpredictor_tpu_torch.models.mmsbm import (
 )
 from trigenicinteractionpredictor_tpu_torch.ops import _build
 from trigenicinteractionpredictor_tpu_torch.ops.dispatch import resolve_stats_fn
+from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import apply_g1_order, make_g1_plan
+from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import make_scatter_plan
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
     log_likelihood,
     make_batch,
@@ -94,6 +98,28 @@ def _check_scope(cfg: Config) -> None:
         )
 
 
+def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
+    """The fit's device batch, with the host plans the chosen sweep needs
+    (the reference's ``train/trainer.py:395-455``): for bdg, rows in g1
+    order plus a 2-position scatter plan of the reordered rows; for the
+    other plan routes, a 3-position scatter plan.  Plans are built once per
+    fit, on the host."""
+    trip, rat, w = ds.triplets, ds.ratings, ds.weights
+    if getattr(stats_fn, "needs_g1plan", False):
+        g1 = make_g1_plan(trip, ds.n_genes, wb1=stats_fn.wb1)
+        trip, rat, w = apply_g1_order(g1, trip, rat, w)
+        scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb, positions=(1, 2))
+        log.log("backend", kernel=stats_fn.kernel_name, wb1=g1.wb1, wb=scatter.wb,
+                g1_blocks=g1.n_blocks, plan_rows=int(scatter.perm.shape[0]))
+        return make_batch(trip, rat, w, dev, scatter=scatter, g1=g1)
+    if getattr(stats_fn, "needs_plan", False):
+        scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb)
+        log.log("backend", kernel=stats_fn.kernel_name, wb=scatter.wb,
+                plan_rows=int(scatter.perm.shape[0]))
+        return make_batch(trip, rat, w, dev, scatter=scatter)
+    return make_batch(trip, rat, w, dev)
+
+
 def fit(
     cfg: Config,
     train_ds: TripletDataset,
@@ -130,7 +156,8 @@ def fit(
 
     if stats_fn is None:
         stats_fn = resolve_stats_fn(
-            dev, arity, G, K, S, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk
+            dev, arity, G, K, S, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk,
+            backend=cfg.engine.backend, n_rows=train_ds.n_rows,
         )
     # Both engine precision modes run exact float32 here: the kernels use
     # no tensor cores and the plain path runs with TF32 off.
@@ -175,7 +202,7 @@ def fit(
             f"do not match samples, genes, k = {want} / arity {arity}"
         )
 
-    batch = make_batch(train_ds.triplets, train_ds.ratings, train_ds.weights, dev)
+    batch = _make_fit_batch(train_ds, stats_fn, dev, log)
     degrees = torch.as_tensor(train_ds.degrees(), device=dev)
     n_real = train_ds.n_real
     config_json = cfg.to_json()
