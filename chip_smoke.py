@@ -36,11 +36,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                route (G = 500,000, S = 10) and on the large-G route
                (G = 100,000, S = 1), each with the counts set to 0 just
                before and read just after; then a small fit (G = 6000)
-               through each of the three routes against the plain fit.
+               through each of the three routes against the plain fit;
+9. stepwise EM -- K7 (em_hybrid) against its plain version and float64,
+               with K3's time at the same shape, at K = 25, G = 6000, S = 2;
+               K = 50, G = 4000, S = 1; K = 64, G = 2000, S = 1 (131,072
+               rows, a stepwise minibatch).  Then ``synth -n 1048576 -g 6000
+               -k 25`` -> ``fit --minibatch 131072 --stream-groups 4 -k 25
+               -s 2 -i 3`` -> ``predict`` through the CLI (route
+               cuda-em-hybrid); the streaming job: a 10^7-row ``save_dir``
+               store (G = 1000, K = 10, S = 10) fit memory-mapped through
+               ``train.trainer.fit`` with minibatch 131,072, 8 stream groups
+               and 2 epochs on K1, with an epoch's host prep, host-to-device
+               copy, K1 and device time measured apart; each with the counts
+               set to 0 just before and read just after; then a small
+               stepwise fit through K1, K3 and K7 against the plain route's
+               stepwise fit.
 
 The line before the last holds the kernels' record as JSON (``launches``
-sums the two counted paths); the last line is ``{"ok": true, "device":
-{...}}``.
+sums the counted paths that run the kernel; ``bound_ms`` is the larger of
+the bytes the call must move over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s, from this run's shapes; ``library_ms`` is one PyTorch
+call computing the same function, or null); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -72,6 +89,13 @@ LOGLIK_RTOL = 1e-5
 SCORE_ATOL = 1e-5
 FIT_RTOL = 1e-4       # final L of a small fit, kernel vs plain sweep
 LL_DROP_RTOL = 1e-5   # largest allowed relative drop along the L trace
+# The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
+# float32 outside the tensor cores and device-memory bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+K7_SHAPES = ((25, 6000, 2), (50, 4000, 1), (64, 2000, 1))  # (K, G, S)
+STEPWISE_N, STEPWISE_MB = 1_048_576, 131_072
+STREAM_N, STREAM_GROUPS, STREAM_EPOCHS = 10_000_000, 8, 2
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -88,6 +112,27 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(flops: float, nbytes: float):
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def _sweep_flops(rows: int, k: int, s: int) -> float:
+    """One sweep's float32 operations: per real row and restart, T = th3 p
+    and A3 = (th1 th2) p (K^3 multiply-adds each, the row's rating only),
+    the cross-stats (K^3), A1, A2, W (K^2 each) and D."""
+    return 2.0 * rows * s * (3 * k**3 + 3 * k**2 + k)
+
+
+def _sweep_bytes(b: int, g: int, k: int, r: int, s: int, theta_in=None, extra=0) -> float:
+    """A sweep's bytes, each input read once and each output written once:
+    theta (or ``theta_in`` bytes of pre-gathered rows), p, 20 bytes a row
+    (3 ids, rating, weight), theta_hat, p_hat, loglik, and ``extra``."""
+    theta, p = 4.0 * s * g * k, 4.0 * s * k**3 * r
+    return (theta if theta_in is None else theta_in) + p + 20.0 * b + theta + p + 4 * s + extra
 
 
 def _check_stats(tag: str, out, ref, f64) -> float:
@@ -174,6 +219,8 @@ def large_g_phase(card: str, dev, cli_main) -> list:
         st = init_state(g, K, R, samples=S, seed=6, device=dev)
         th, p = st.theta, st.p
         plain_batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+        positions = (1, 2) if kind == "bdg" else (0, 1, 2)
+        trip = ds.triplets
         if kind == "bdg":
             g1 = em_bdg.make_g1_plan(ds.triplets, g, wb1=wb1)
             trip, rat, w = em_bdg.apply_g1_order(g1, ds.triplets, ds.ratings, ds.weights)
@@ -222,12 +269,30 @@ def large_g_phase(card: str, dev, cli_main) -> list:
                 lambda: em_bd.plan_scatter_reference(streams, *scatter_args), 3),
             "k1": _time_ms(lambda: em_bdr.em_ensemble_stats(th, p, plain_batch), 10),
         }
+        # The yardstick of K5b: index_add_ of the same slots into [G, S*K].
+        slots = len(positions) * N
+        genes = torch.as_tensor(np.concatenate([trip[:, q] for q in positions]),
+                                dtype=torch.long, device=dev)
+        vals = streams.reshape(slots, S * K)
+        acc = torch.zeros((g, S * K), device=dev)
+        t["scatter_library"] = _time_ms(lambda: acc.index_add_(0, genes, vals), 20)
+        flops = _sweep_flops(N, K, S)
+        stream_b = 4.0 * slots * S * K
+        bounds = {
+            "estep": _bound(flops, _sweep_bytes(N, g, K, R, S, extra=stream_b + 4.0 * N)
+                            if kind == "bdg" else
+                            _sweep_bytes(N, g, K, R, S, extra=stream_b) - 4.0 * S * g * K),
+            "scatter": _bound(float(slots * S * K),
+                              stream_b + 8.0 * slots + 4.0 * S * g * K),
+            "kernel": _bound(flops, _sweep_bytes(N, g, K, R, S, extra=8.0 * slots)),
+        }
         print(f"[{tag}] {shape}: sweep-stats {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, K1 {t['k1']:.4f} ms; E-step {t['estep']:.4f} ms "
               f"(plain {t['estep_plain']:.4f}); plan_scatter {t['scatter']:.4f} ms "
-              f"(plain {t['scatter_plain']:.4f}) ({card})")
-        rec[(kind, g, S)] = dict(t, e_err=e_err, s_err=s_err)
-        del st, th, p, batch, plain_batch, streams, ds
+              f"(plain {t['scatter_plain']:.4f}, index_add_ {t['scatter_library']:.4f}); "
+              f"bounds {json.dumps(bounds)} ({card})")
+        rec[(kind, g, S)] = dict(t, e_err=e_err, s_err=s_err, bounds=bounds)
+        del st, th, p, batch, plain_batch, streams, ds, genes, vals, acc
         torch.cuda.empty_cache()
 
     counted = {em_bdg.ESTEP_NAME: em_bdg.bdg_estep, em_bd.SCATTER_NAME: em_bd.plan_scatter,
@@ -326,23 +391,265 @@ def large_g_phase(card: str, dev, cli_main) -> list:
     ref = "trigenicinteractionpredictor_tpu/ops/"
     bdg, bd, s1 = rec[("bdg", 100_000, 10)], rec[("bd", 500_000, 10)], rec[("large", 100_000, 1)]
     bd_n, lg_n = route_counts[em_bd.KERNEL_NAME], route_counts[em_large_g.KERNEL_NAME]
+    def row(name, source, replaces, launches, err, r, part, plain, library=None):
+        bound_ms, bound_by = r["bounds"][part]
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": ref + replaces, "launches": launches, "max_abs_err": err,
+                "ms": r[part], "plain_ms": r[plain], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library}
+
     return [
-        {"name": "em_bdg", "route": "cuda", "source": src + "em_bdg.cu",
-         "replaces": ref + "pallas_em_bdg.py:289", "launches": job_counts[em_bdg.ESTEP_NAME],
-         "max_abs_err": bdg["e_err"], "ms": bdg["estep"], "plain_ms": bdg["estep_plain"]},
-        {"name": "plan_scatter", "route": "cuda", "source": src + "plan_scatter.cu",
-         "replaces": ref + "pallas_em_bd.py:364",
-         "launches": job_counts[em_bd.SCATTER_NAME] + bd_n[em_bd.SCATTER_NAME],
-         "max_abs_err": max(r["s_err"] for r in rec.values()), "ms": bdg["scatter"],
-         "plain_ms": bdg["scatter_plain"]},
-        {"name": "em_streams", "route": "cuda", "source": src + "em_streams.cu",
-         "replaces": ref + "pallas_em_bd.py:215", "launches": bd_n[em_bd.STREAMS_NAME],
-         "max_abs_err": bd["e_err"], "ms": bd["estep"], "plain_ms": bd["estep_plain"]},
-        {"name": "large_g (em_streams + plan_scatter at S = 1)", "route": "cuda",
-         "source": src + "em_streams.cu", "replaces": ref + "pallas_em_large.py:275",
-         "launches": lg_n[em_bd.STREAMS_NAME], "max_abs_err": max(s1["e_err"], s1["s_err"]),
-         "ms": s1["kernel"], "plain_ms": s1["plain"]},
+        row("em_bdg", "em_bdg.cu", "pallas_em_bdg.py:289", job_counts[em_bdg.ESTEP_NAME],
+            bdg["e_err"], bdg, "estep", "estep_plain"),
+        row("plan_scatter", "plan_scatter.cu", "pallas_em_bd.py:364",
+            job_counts[em_bd.SCATTER_NAME] + bd_n[em_bd.SCATTER_NAME],
+            max(r["s_err"] for r in rec.values()), bdg, "scatter", "scatter_plain",
+            bdg["scatter_library"]),
+        row("em_streams", "em_streams.cu", "pallas_em_bd.py:215", bd_n[em_bd.STREAMS_NAME],
+            bd["e_err"], bd, "estep", "estep_plain"),
+        row("large_g (em_streams + plan_scatter at S = 1)", "em_streams.cu",
+            "pallas_em_large.py:275", lg_n[em_bd.STREAMS_NAME], max(s1["e_err"], s1["s_err"]),
+            s1, "kernel", "plain"),
     ]
+
+
+def stepwise_phase(card: str, dev, cli_main):
+    """Phase 9 (see the module docstring); returns K7's record for the
+    kernels line and the K1 and K2 launches of the stepwise paths."""
+    import numpy as np
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch import Config
+    from trigenicinteractionpredictor_tpu_torch.data import (
+        TripletDataset,
+        sample_synthetic_dataset,
+        train_test_split,
+    )
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+    from trigenicinteractionpredictor_tpu_torch.ops import (
+        dispatch,
+        em_bdr,
+        em_hybrid,
+        em_large_k,
+        score,
+    )
+    from trigenicinteractionpredictor_tpu_torch.ops.em import Batch, log_likelihood, make_batch
+    from trigenicinteractionpredictor_tpu_torch.ops.stepwise import stepwise_group, zero_stats_like
+    from trigenicinteractionpredictor_tpu_torch.train.checkpoint import load_checkpoint
+    from trigenicinteractionpredictor_tpu_torch.train.stream_prep import StreamPrep
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, fit
+
+    R, MB = 2, STEPWISE_MB
+    quiet = JsonlLogger(None, echo=False)
+    rec = {}
+
+    # 9a. K7 against its plain version and float64, with K3's time beside it
+    for k, g, S in K7_SHAPES:
+        shape = f"N={MB}, G={g}, K={k}, R={R}, S={S}"
+        ds, _, _ = sample_synthetic_dataset(MB, g, 10, n_ratings=R, seed=9)
+        st = init_state(g, k, R, samples=S, seed=10, device=dev)
+        batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+        streams = em_hybrid.gather_rows(st.theta, batch.triplets)
+        rows = (batch.triplets, batch.ratings, batch.weights)
+        out = em_hybrid.hybrid_stats(*streams, *rows, st.p, g)
+        ref = em_hybrid.em_ensemble_stats_reference(*streams, *rows, st.p, g)
+        f64 = em_hybrid.em_ensemble_stats_reference(
+            *(x.double() for x in streams), *rows, st.p.double(), g, row_chunk=4096)
+        torch.cuda.synchronize()
+        err = _check_stats(f"K7 {shape}", out, ref, f64)
+        del out, ref, f64
+        t = {
+            "kernel": _time_ms(lambda: em_hybrid.hybrid_stats(*streams, *rows, st.p, g), 10),
+            "route": _time_ms(lambda: em_hybrid.em_ensemble_stats(st.theta, st.p, batch), 10),
+            "plain": _time_ms(
+                lambda: em_hybrid.em_ensemble_stats_reference(*streams, *rows, st.p, g), 3),
+            "k3": _time_ms(lambda: em_large_k.em_ensemble_stats(st.theta, st.p, batch), 10),
+        }
+        bound = _bound(_sweep_flops(MB, k, S),
+                       _sweep_bytes(MB, g, k, R, S, theta_in=3 * 4.0 * MB * S * k))
+        print(f"[K7] {shape}: {t['kernel']:.4f} ms (with the gather {t['route']:.4f}), "
+              f"plain {t['plain']:.4f} ms, K3 {t['k3']:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}) ({card})")
+        rec[(k, g, S)] = dict(t, err=err, bound=bound)
+        del st, batch, streams, rows, ds
+        torch.cuda.empty_cache()
+
+    counted = {em_hybrid.KERNEL_NAME: em_hybrid.hybrid_stats,
+               em_bdr.KERNEL_NAME: em_bdr.em_ensemble_stats,
+               em_large_k.KERNEL_NAME: em_large_k.em_ensemble_stats,
+               score.KERNEL_NAME: score.ensemble_score}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # 9b. the stepwise fit through the CLI on the K7 route, then predict
+    K, S, G = 25, 2, 6000
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth.npz")
+        assert cli_main(["synth", "-o", data, "-n", str(STEPWISE_N), "-g", str(G),
+                         "-k", str(K), "--ratings", str(R), "--seed", "0"]) == 0
+        out_dir = os.path.join(tmp, "fit")
+        pred = os.path.join(tmp, "pred.tsv")
+        reset()
+        t_job = time.perf_counter()
+        assert cli_main(["fit", "-f", data, "-k", str(K), "-s", str(S), "-i", "3", "-n", "1",
+                         "--minibatch", str(MB), "--stream-groups", "4", "-o", out_dir,
+                         "--device", "cuda"]) == 0
+        job_s = time.perf_counter() - t_job
+        assert cli_main(["predict", "-f", data, "--checkpoint",
+                         os.path.join(out_dir, "model.ckpt.npz"), "-o", pred,
+                         "--device", "cuda"]) == 0
+        job_counts = counts()
+        with open(os.path.join(out_dir, "events.jsonl")) as fh:
+            events = [json.loads(line) for line in fh]
+        ck = load_checkpoint(os.path.join(out_dir, "model.ckpt.npz"), dev)
+        with open(pred) as fh:
+            probs = np.array([float(line.rsplit("\t", 1)[1]) for line in fh.readlines()[1:]])
+        train, _ = train_test_split(TripletDataset.load_npz(data), 0.2, seed=0)
+    tb = make_batch(train.triplets, train.ratings, train.weights, dev)
+    l_init = log_likelihood(init_state(G, K, R, samples=S, seed=0, device=dev), tb,
+                            row_chunk=16384).cpu().numpy()
+    l_final = log_likelihood(ck["states"], tb, row_chunk=16384).cpu().numpy()
+    disp = next(e for e in events if e["event"] == "dispatch")
+    layout = next(e for e in events if e["event"] == "stepwise")
+    done = next(e for e in events if e["event"] == "fit_done")
+    trace = ck["ll_trace"]
+    print(f"[stepwise job] dispatch {json.dumps(disp, sort_keys=True)}; layout "
+          f"minibatch {layout['minibatch']}, {layout['n_minibatches']} minibatches, "
+          f"stream_groups {layout['stream_groups']}, padded rows {layout['padded_rows']}, "
+          f"prep workers {layout['prep_workers']}")
+    print(f"[stepwise job] launches {job_counts}; epoch trace (best restart) "
+          f"{trace.max(axis=1).tolist()}; L on the train split {l_init.tolist()} -> "
+          f"{l_final.tolist()}; {done['sweeps'] / done['wall_s']:.3f} epochs/s, "
+          f"{done['triplets_per_sec']:.4e} rows/s ({done['triplets_per_sec'] * S:.4e} "
+          f"restart-row updates/s, S={S}); fit command {job_s:.2f} s ({card})")
+    assert disp["kernel"] == em_hybrid.KERNEL_NAME, disp
+    assert done["mode"] == "stepwise" and done["sweeps"] == 3
+    assert job_counts[em_hybrid.KERNEL_NAME] == 3 * layout["n_minibatches"], job_counts
+    assert job_counts[score.KERNEL_NAME] >= 1
+    assert trace.shape == (3, S) and np.isfinite(trace).all()
+    assert np.isfinite(l_final).all() and np.all(l_final > l_init), (l_init, l_final)
+    assert probs.shape == (STEPWISE_N,) and probs.min() >= 0.0 and probs.max() <= 1.0
+    del tb, train, ck
+
+    # 9c. the streaming job: a 10^7-row memmapped store through fit, on K1
+    K, S, G = 10, 10, 1000
+    with tempfile.TemporaryDirectory() as tmp:
+        t_make = time.perf_counter()
+        ds, _, _ = sample_synthetic_dataset(STREAM_N, G, K, n_ratings=R, seed=11)
+        ds.save_dir(os.path.join(tmp, "store"))
+        del ds
+        store = TripletDataset.load_dir(os.path.join(tmp, "store"), mmap=True)
+        make_s = time.perf_counter() - t_make
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, k=K, sweeps=STREAM_EPOCHS, samples=S, likelihood_freq=1, seed=0,
+            minibatch=MB, stream_groups=STREAM_GROUPS))
+        reset()
+        res = fit(cfg, store, device=dev, logger=quiet)
+        stream_counts = counts()
+        lay = res.layout
+        n_mb = lay["n_minibatches"]
+        group = lay["stream_groups"] or n_mb
+        assert res.dispatch["kernel"] == em_bdr.KERNEL_NAME, res.dispatch
+        assert stream_counts[em_bdr.KERNEL_NAME] == STREAM_EPOCHS * n_mb, stream_counts
+        assert res.ll_trace.shape == (STREAM_EPOCHS, S) and np.isfinite(res.ll_trace).all()
+        assert np.isfinite(res.final_loglik).all()
+
+        # One epoch's parts, measured apart (not counted): host prep (the
+        # pool the fit used), the copy into pinned memory, the host-to-device
+        # copy, the device work of the groups, and K1 alone.
+        prep = StreamPrep(store, {"seed": 0, "n": store.n_rows, "n_padded": lay["padded_rows"],
+                                  "mb": MB, "group": group, "arity": 3, "rsort": False,
+                                  "n_ratings": R}, workers=0)
+        prep_s = pin_s = 0.0
+        pinned = []
+        try:
+            for d in range(n_mb // group):
+                t0 = time.perf_counter()
+                host = prep.prep_group(0, d)
+                t1 = time.perf_counter()
+                pinned.append([torch.from_numpy(np.array(host[k])).pin_memory()
+                               for k in ("trip", "rat", "wts")])
+                pin_s += time.perf_counter() - t1
+                prep_s += t1 - t0
+        finally:
+            prep.close()
+        inline = StreamPrep(store, prep._layout, workers=1)
+        t0 = time.perf_counter()
+        try:
+            for d in range(n_mb // group):
+                inline.prep_group(0, d)
+        finally:
+            inline.close()
+        inline_s = time.perf_counter() - t0
+        on_dev = []
+        h2d_ms = _time_ms(lambda: on_dev.append(
+            [Batch(*(x.to(dev, non_blocking=True) for x in grp)) for grp in pinned]), 1)
+        groups = on_dev[-1]
+        del on_dev[:-1]
+        st = init_state(G, K, R, samples=S, seed=0, device=dev)
+        degrees = torch.as_tensor(store.degrees(), device=dev)
+        w_total = torch.tensor(np.float32(store.weight_total()), device=dev)
+
+        def epoch():
+            states, ema, t = st, zero_stats_like(st), torch.zeros((), device=dev)
+            for grp in groups:
+                states, ema, _, t = stepwise_group(states, ema, t, grp, degrees, w_total,
+                                                   em_bdr.em_ensemble_stats, 0.6, 2.0)
+
+        device_ms = _time_ms(epoch, 1)
+        minibatches = [Batch(grp.triplets[i], grp.ratings[i], grp.weights[i])
+                       for grp in groups for i in range(group)]
+        kernel_ms = _time_ms(lambda: [em_bdr.em_ensemble_stats(st.theta, st.p, mb)
+                                      for mb in minibatches], 1)
+        n_workers = prep.workers
+        del store, groups, minibatches, pinned, st
+    print(f"[streaming job] {STREAM_N} rows (store made in {make_s:.2f} s), G={G}, K={K}, "
+          f"S={S}, {n_mb} minibatches of {MB} in groups of {group}, {STREAM_EPOCHS} epochs: "
+          f"launches {stream_counts}; epoch trace (best) {res.ll_trace.max(axis=1).tolist()}")
+    print(f"[streaming job] per epoch: wall {res.wall_seconds / STREAM_EPOCHS:.4f} s; host "
+          f"prep {prep_s:.4f} s ({n_workers} workers; in-thread {inline_s:.4f} s), copy into "
+          f"pinned memory {pin_s:.4f} s, "
+          f"host-to-device {h2d_ms / 1e3:.4f} s, device {device_ms / 1e3:.4f} s of which K1 "
+          f"{kernel_ms / 1e3:.4f} s ({n_mb} launches); {res.triplets_per_sec:.4e} rows/s "
+          f"({res.triplets_per_sec * S:.4e} restart-row updates/s) ({card})")
+
+    # 9d. a small stepwise fit through each route against the plain route's
+    small, _, _ = sample_synthetic_dataset(20_000, 6000, 5, n_ratings=R, seed=12)
+    for route, k in ((em_bdr.KERNEL_NAME, 10), (em_large_k.KERNEL_NAME, 25),
+                     (em_hybrid.KERNEL_NAME, 25)):
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, k=k, sweeps=3, samples=2, likelihood_freq=1, seed=5, minibatch=4096,
+            stream_groups=2))
+        via_kernel = fit(cfg, small, device=dev, logger=quiet,
+                         stats_fn=dispatch.stats_fn_for(route, k, R))
+        via_plain = fit(cfg, small, device=dev, logger=quiet, stats_fn=dispatch.plain_stats)
+        assert via_kernel.dispatch["kernel"] == route
+        np.testing.assert_allclose(via_kernel.final_loglik, via_plain.final_loglik,
+                                   rtol=FIT_RTOL)
+        np.testing.assert_allclose(via_kernel.ll_trace, via_plain.ll_trace, rtol=FIT_RTOL)
+        print(f"[{route}] small stepwise fit (G=6000, K={k}), kernel vs plain final L within "
+              f"rtol {FIT_RTOL:g}: {via_kernel.final_loglik.tolist()} vs "
+              f"{via_plain.final_loglik.tolist()}")
+
+    first = rec[K7_SHAPES[0]]
+    k7 = {
+        "name": "em_hybrid", "route": "cuda",
+        "source": "trigenicinteractionpredictor_tpu_torch/csrc/em_hybrid.cu",
+        "replaces": "trigenicinteractionpredictor_tpu/ops/pallas_em_hybrid.py:161",
+        "launches": job_counts[em_hybrid.KERNEL_NAME],
+        "max_abs_err": max(r["err"] for r in rec.values()),
+        "ms": first["kernel"], "plain_ms": first["plain"], "bound_ms": first["bound"][0],
+        "bound_by": first["bound"][1], "library_ms": None,
+    }
+    return k7, {em_bdr.KERNEL_NAME: stream_counts[em_bdr.KERNEL_NAME],
+                score.KERNEL_NAME: job_counts[score.KERNEL_NAME]}
 
 
 def main() -> int:
@@ -419,8 +726,9 @@ def main() -> int:
     k1_plain_ms = _time_ms(
         lambda: em_bdr.em_ensemble_stats_reference(init.theta, init.p, batch), 5
     )
-    print(f"[K1] {k1_ms:.4f} ms/sweep-stats, plain {k1_plain_ms:.4f} ms "
-          f"(N={N}, G={G}, K={K}, R={R}, S={S}; {card})")
+    k1_bound = _bound(_sweep_flops(N, K, S), _sweep_bytes(N, G, K, R, S))
+    print(f"[K1] {k1_ms:.4f} ms/sweep-stats, plain {k1_plain_ms:.4f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}) (N={N}, G={G}, K={K}, R={R}, S={S}; {card})")
     del ref, out
 
     # 4. K3 against its plain version at the headline N, G, R, S.  The plain
@@ -441,9 +749,10 @@ def main() -> int:
         plain = _time_ms(
             lambda: em_large_k.em_ensemble_stats_reference(st.theta, st.p, batch), 3
         )
-        k3_times[k] = (ms, plain)
-        print(f"[K3] K={k}: {ms:.4f} ms/sweep-stats, plain {plain:.4f} ms "
-              f"(N={N}, G={G}, R={R}, S={S}; {card})")
+        bound = _bound(_sweep_flops(N, k, S), _sweep_bytes(N, G, k, R, S))
+        k3_times[k] = (ms, plain, bound)
+        print(f"[K3] K={k}: {ms:.4f} ms/sweep-stats, plain {plain:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) (N={N}, G={G}, R={R}, S={S}; {card})")
         del st
     torch.cuda.empty_cache()
 
@@ -465,7 +774,19 @@ def main() -> int:
         plain = _time_ms(lambda: score.ensemble_score_reference(st.theta, st.p, trips), 5)
         print(f"[K2] G={g}, K={k}, rows={n}: {ms:.4f} ms, plain {plain:.4f} ms ({card})")
         if (g, k) == (G, K):
+            # The yardstick: one einsum over the gathered rows, D[b,s,r]
+            # (th3 with p first, so no [S,B,K,K,K] intermediate forms).
+            rows = [st.theta[:, trips[:, q].long(), :] for q in range(3)]
+            k2_library = _time_ms(lambda: torch.einsum(
+                "sbm,sklmr,sbl,sbk->bsr", rows[2], st.p, rows[1], rows[0]), 5)
+            # per row and restart, all R: sum_m th3 p (K^3 R multiply-adds),
+            # then over l (K^2 R) and k (K R); bytes: theta, p, ids, out
+            k2_bound = _bound(2.0 * n * S * R * (k**3 + k**2 + k),
+                              4.0 * S * g * k + 4.0 * S * k**3 * R + 12.0 * n + 4.0 * n)
             k2_ms, k2_plain_ms = ms, plain
+            print(f"[K2] G={g}, K={k}, rows={n}: einsum {k2_library:.4f} ms, bound "
+                  f"{k2_bound[0]:.4f} ms ({k2_bound[1]}) ({card})")
+            del rows
 
     # 6. the fit path, through the entry points a user calls
     train, test = train_test_split(ds, 0.2, seed=0)
@@ -585,29 +906,38 @@ def main() -> int:
     # 8. the large-G fit
     large_g_kernels = large_g_phase(card, dev, cli_main)
 
+    # 9. stepwise EM
+    k7_kernel, stepwise_counts = stepwise_phase(card, dev, cli_main)
+
+    src = "trigenicinteractionpredictor_tpu_torch/csrc/"
+    ref = "trigenicinteractionpredictor_tpu/ops/"
+    k3_50 = k3_times[50]
     kernels = [
         {
-            "name": "em_sweep", "route": "cuda",
-            "source": "trigenicinteractionpredictor_tpu_torch/csrc/em_sweep.cu",
-            "replaces": "trigenicinteractionpredictor_tpu/ops/pallas_em_bdr.py:279",
-            "launches": k1_launches + sweep_launches["em_sweep"], "max_abs_err": k1_err,
-            "ms": k1_ms, "plain_ms": k1_plain_ms,
+            "name": "em_sweep", "route": "cuda", "source": src + "em_sweep.cu",
+            "replaces": ref + "pallas_em_bdr.py:279",
+            "launches": k1_launches + sweep_launches["em_sweep"]
+            + stepwise_counts[em_bdr.KERNEL_NAME],
+            "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+            "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
         },
         {
-            "name": "score", "route": "cuda",
-            "source": "trigenicinteractionpredictor_tpu_torch/csrc/score.cu",
-            "replaces": "trigenicinteractionpredictor_tpu/ops/pallas_score.py:120",
-            "launches": k2_launches + sweep_launches["score"], "max_abs_err": k2_err,
-            "ms": k2_ms, "plain_ms": k2_plain_ms,
+            "name": "score", "route": "cuda", "source": src + "score.cu",
+            "replaces": ref + "pallas_score.py:120",
+            "launches": k2_launches + sweep_launches["score"]
+            + stepwise_counts[score.KERNEL_NAME],
+            "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_library,
         },
         {
-            "name": "em_sweep_large_k", "route": "cuda",
-            "source": "trigenicinteractionpredictor_tpu_torch/csrc/em_sweep_large_k.cu",
-            "replaces": "trigenicinteractionpredictor_tpu/ops/pallas_em.py:180",
+            "name": "em_sweep_large_k", "route": "cuda", "source": src + "em_sweep_large_k.cu",
+            "replaces": ref + "pallas_em.py:180",
             "launches": sweep_launches["em_sweep_large_k"], "max_abs_err": k3_err,
-            "ms": k3_times[50][0], "plain_ms": k3_times[50][1],
+            "ms": k3_50[0], "plain_ms": k3_50[1], "bound_ms": k3_50[2][0],
+            "bound_by": k3_50[2][1], "library_ms": None,
         },
         *large_g_kernels,
+        k7_kernel,
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

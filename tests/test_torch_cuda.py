@@ -26,6 +26,7 @@ from trigenicinteractionpredictor_tpu_torch.ops import (
     em_bd,
     em_bdg,
     em_bdr,
+    em_hybrid,
     em_large_g,
     em_large_k,
     score,
@@ -348,6 +349,82 @@ def test_fit_through_large_g_routes_matches_plain_fit(dev, route):
     quiet = JsonlLogger(None, echo=False)
     via_kernel = fit(cfg, ds, device=dev, logger=quiet,
                      stats_fn=dispatch.stats_fn_for(route, 4, 2))
+    via_plain = fit(cfg, ds, device=dev, logger=quiet, stats_fn=plain_stats)
+    assert via_kernel.dispatch["kernel"] == route
+    np.testing.assert_allclose(via_kernel.final_loglik, via_plain.final_loglik, rtol=1e-4)
+    np.testing.assert_allclose(via_kernel.ll_trace, via_plain.ll_trace, rtol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "k,r,s",
+    [(21, 2, 1), (21, 3, 10), (25, 2, 2), (25, 3, 10), (40, 2, 2), (40, 3, 1),
+     (50, 2, 1), (50, 3, 2), (64, 2, 10), (64, 3, 1)],
+)
+def test_k7_matches_plain(dev, k, r, s):
+    """K7 across K = 21..64, R = 2 and 3, S = 1, 2 and 10, on a B that is no
+    tile multiple, with weight-0 rows and rows with an out-of-range gene id
+    or rating, which the kernel must treat as inert: the plain version runs
+    without them.  The kernel alone on the streams, and through the route's
+    stats function (gather + kernel)."""
+    ds, st = _case(601, 70, k, r, s, seed=61, dev=dev)
+    w = ds.weights.copy()
+    w[::9] = 0.0
+    bad = np.array([[0, 70, 1], [-1, 2, 3], [4, 5, 2**31 - 1], [6, 7, 8]], np.int32)
+    trips = np.concatenate([ds.triplets, bad])
+    rats = np.concatenate([ds.ratings, np.array([1, 0, 1, r], np.int32)])
+    wts = np.concatenate([w, np.ones(4, np.float32)])
+    tb = make_batch(trips, rats, wts, dev)
+    clean = make_batch(ds.triplets, ds.ratings, w, dev)
+    streams = em_hybrid.gather_rows(st.theta, tb.triplets)
+    launches = em_hybrid.hybrid_stats.launches
+    out = em_hybrid.hybrid_stats(*streams, tb.triplets, tb.ratings, tb.weights, st.p, 70)
+    via_route = em_hybrid.em_ensemble_stats(st.theta, st.p, tb)
+    ref = em_hybrid.em_ensemble_stats_reference(
+        *em_hybrid.gather_rows(st.theta, clean.triplets), clean.triplets, clean.ratings,
+        clean.weights, st.p, 70)
+    torch.cuda.synchronize()
+    assert em_hybrid.hybrid_stats.launches == launches + 2
+    for got in (out, via_route):
+        np.testing.assert_allclose(got.theta_hat.cpu(), ref.theta_hat.cpu(), atol=1e-4)
+        np.testing.assert_allclose(got.p_hat.cpu(), ref.p_hat.cpu(), rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(got.loglik.cpu(), ref.loglik.cpu(), rtol=1e-5)
+
+
+def test_k7_refuses_what_it_does_not_take(dev):
+    ds, st = _case(256, 20, 25, 2, 2, seed=1, dev=dev)
+    tb = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+    streams = em_hybrid.gather_rows(st.theta, tb.triplets)
+    with pytest.raises(ValueError):  # int64 ids
+        em_hybrid.hybrid_stats(*streams, tb.triplets.long(), tb.ratings, tb.weights, st.p, 20)
+    with pytest.raises(ValueError):  # streams of another restart count
+        em_hybrid.hybrid_stats(*(x[:, :25] for x in streams), tb.triplets, tb.ratings,
+                               tb.weights, st.p, 20)
+    for k in (20, 65):
+        other = init_state(20, k, 2, samples=1, seed=2, device=dev)
+        with pytest.raises(ValueError):
+            em_hybrid.em_ensemble_stats(other.theta, other.p, tb)
+
+
+@pytest.mark.parametrize("route,k", [("cuda-em-sweep", 10), ("cuda-em-sweep-large-k", 25),
+                                     ("cuda-em-hybrid", 25)])
+def test_stepwise_fit_through_each_route_matches_plain(dev, route, k):
+    """Stepwise EM (2 groups a epoch, prefetch on) through each kernel
+    route against the plain stepwise fit from the same init and shuffles;
+    at G = 6000, K = 25, S = 2 the route is K7."""
+    from trigenicinteractionpredictor_tpu_torch.ops import dispatch
+
+    ds, _ = _case(20_000, 6000, 5, 2, 1, seed=3, dev=dev)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=k, sweeps=3, samples=2, likelihood_freq=1, seed=5, minibatch=4096,
+        stream_groups=2,
+    ))
+    quiet = JsonlLogger(None, echo=False)
+    if route == "cuda-em-hybrid":
+        assert fit(cfg.replace(train=dataclasses.replace(cfg.train, sweeps=1)), ds,
+                   device=dev, logger=quiet).dispatch["kernel"] == route
+    via_kernel = fit(cfg, ds, device=dev, logger=quiet,
+                     stats_fn=dispatch.stats_fn_for(route, k, 2))
     via_plain = fit(cfg, ds, device=dev, logger=quiet, stats_fn=plain_stats)
     assert via_kernel.dispatch["kernel"] == route
     np.testing.assert_allclose(via_kernel.final_loglik, via_plain.final_loglik, rtol=1e-4)

@@ -179,7 +179,7 @@ def test_e2e_recovers_near_bayes_auc():
 @pytest.mark.parametrize(
     "override",
     [
-        {"train": {"minibatch": 64}},
+        {"train": {"minibatch": 64, "anneal_beta0": 0.5}},  # stepwise runs; annealing not
         {"train": {"anneal_beta0": 0.5}},
         {"train": {"refine_rounds": 1}},
         {"train": {"smem_rounds": 1}},
@@ -244,17 +244,71 @@ def test_cuda_request_without_gpu_names_cpu_flag():
         resolve_device("cuda")
 
 
+@pytest.mark.parametrize("override", [{}, {"train": {"minibatch": 4096, "k": 25},
+                                          "data": {"tau_mode": "negative"},
+                                          "engine": {"backend": "jnp"}, "out_dir": "runs/x"}])
+def test_config_copy_serializes_as_the_reference(override):
+    """The port's own config module gives the reference's JSON text, and
+    either reads the other's."""
+    from trigenicinteractionpredictor_tpu_torch.config import Config as TConfig
+
+    d = Config().to_dict()
+    for key, val in override.items():
+        d[key] = dict(d[key], **val) if isinstance(val, dict) else val
+    ref, port = Config.from_dict(d), TConfig.from_dict(d)
+    assert port.to_json() == ref.to_json()
+    assert TConfig.from_json(ref.to_json()).to_json() == ref.to_json()
+    assert Config.from_json(port.to_json()).to_json() == port.to_json()
+
+
+def test_data_copies_give_the_reference_arrays(tmp_path):
+    """The port's data modules (pure-Python Kuzmin parser, packing, splits,
+    synthetic generator) give the reference's arrays."""
+    from trigenicinteractionpredictor_tpu.data.kuzmin import load_kuzmin_tsv as jload
+    from trigenicinteractionpredictor_tpu.data.splits import kfold_splits as jfolds
+    from trigenicinteractionpredictor_tpu.data.synthetic import write_kuzmin_like_tsv
+    from trigenicinteractionpredictor_tpu_torch import data as tdata
+    from trigenicinteractionpredictor_tpu_torch.config import DataConfig as TDataConfig
+
+    def same(a, b):
+        assert (a.n_genes, a.n_ratings, a.gene_names) == (b.n_genes, b.n_ratings, b.gene_names)
+        for name in ("triplets", "ratings", "weights"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+    tsv = str(tmp_path / "k.tsv")
+    write_kuzmin_like_tsv(tsv, n_rows=300, n_genes=25, seed=4)
+    for mutant in ("trigenic", "digenic"):
+        from trigenicinteractionpredictor_tpu.config import DataConfig
+
+        same(tdata.load_kuzmin_tsv(tsv, TDataConfig(mutant_type=mutant, tau_mode="negative")),
+             jload(tsv, DataConfig(mutant_type=mutant, tau_mode="negative")))
+    ds, th, p = tdata.sample_synthetic_dataset(500, 20, 3, seed=9)
+    jds, jth, jp = sample_synthetic_dataset(500, 20, 3, seed=9)
+    same(ds, jds)
+    np.testing.assert_array_equal(th, jth)
+    for (f, a, b), (_, ja, jb) in zip(tdata.kfold_splits(ds, 3, seed=2), jfolds(jds, 3, seed=2)):
+        same(a, ja)
+        same(b, jb)
+    ds.save_dir(str(tmp_path / "store"))
+    same(tdata.TripletDataset.load_dir(str(tmp_path / "store")), jds)
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+    """Importing every module of the port leaves neither jax nor any module
+    of the JAX package in sys.modules, and no source file of the port (nor
+    chip_smoke.py) imports the JAX package: the port keeps its own copies
+    of the config, data and logging modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import trigenicinteractionpredictor_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 17, names\n"
-        "for n in ('analysis', 'ops.em_large_k', 'train.driver'):\n"
+        "assert len(names) >= 30, names\n"
+        "for n in ('analysis', 'config', 'data.kuzmin', 'utils.logging', 'ops.em_hybrid',\n"
+        "          'ops.stepwise', 'train.stream_prep', 'train.driver'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.split('.')[0] == 'trigenicinteractionpredictor_tpu')\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -262,3 +316,16 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
+
+    import re
+
+    pattern = re.compile(r"^\s*(from|import)\s+(jax\b|trigenicinteractionpredictor_tpu\b(?!_))",
+                         re.MULTILINE)
+    pkg = os.path.join(REPO, "trigenicinteractionpredictor_tpu_torch")
+    sources = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f) for root, _, files in os.walk(pkg) for f in files
+        if f.endswith(".py")
+    ]
+    assert len(sources) >= 31
+    offenders = [p for p in sources if pattern.search(open(p).read())]
+    assert not offenders, offenders

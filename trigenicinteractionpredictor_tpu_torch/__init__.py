@@ -14,15 +14,22 @@ each counterpart is easy to find:
 - ``ops.score``         -- the hand-written CUDA scoring kernel (``csrc/score.cu``)
 - ``ops.dispatch``      -- kernel-or-plain choice per device and shape
 - ``ops.scoring``, ``ops.metrics``, ``eval`` -- held-out scoring and metrics
-- ``train.trainer``, ``train.checkpoint`` -- classic full-batch EM fit loop
+- ``ops.em_hybrid``     -- the hand-written CUDA sweep kernel on pre-gathered
+                           theta rows (``csrc/em_hybrid.cu``)
+- ``ops.em_bdg``, ``ops.em_bd``, ``ops.em_large_g`` -- the large-G sweep
+                           kernels and their host plans
+- ``ops.stepwise``      -- the stepwise EM update of one minibatch group
+- ``train.trainer``, ``train.checkpoint`` -- classic and stepwise EM fit loops
+- ``train.stream_prep`` -- host-side minibatch preparation (numpy only)
 - ``train.driver``, ``analysis`` -- fold x K work units and cross-restart reports
 - ``cli``               -- ``fit`` / ``cv`` / ``sweep`` / ``predict`` /
                            ``analyze`` / ``synth``
 
-The jax-free host layer (``config``, ``data``, ``utils.logging``) is reused
-from the reference package unchanged.
+The host layer (``config``, ``data``, ``utils.logging``) is the port's own
+copy of the reference's plain-NumPy modules, under the same names, so the
+port imports nothing of the JAX package.
 """
 
 __version__ = "0.1.0"
 
-from trigenicinteractionpredictor_tpu.config import Config  # noqa: F401
+from trigenicinteractionpredictor_tpu_torch.config import Config  # noqa: F401

@@ -3,6 +3,7 @@
 ``synth``):
 
     python -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv -k 10 -i 400 -s 10 -o runs/fit
+    python -m trigenicinteractionpredictor_tpu_torch fit -f store_dir -k 25 -s 2 -i 3 --minibatch 131072 --stream-groups 4
     python -m trigenicinteractionpredictor_tpu_torch sweep -f data.tsv --k-grid 5,10,25,50 -s 10 -o runs/sweep
     python -m trigenicinteractionpredictor_tpu_torch cv -f data.tsv -k 10 --folds 5 -o runs/cv
     python -m trigenicinteractionpredictor_tpu_torch predict -f data.tsv --checkpoint runs/fit/model.ckpt.npz
@@ -15,9 +16,13 @@ plain PyTorch sweep on any device; ``auto`` and ``pallas`` (the default
 ``auto``) run the CUDA kernel that ``ops/dispatch.py::route`` picks for
 the shape, including the large-G routes with their host plans.
 ``--precision`` is accepted and recorded: the sweep kernels are exact
-float32 in both precision modes.  Knobs this engine does not run yet
-(stepwise, annealing, refine, split-merge, spectral init, mesh axes > 1)
-are refused by the trainer, never ignored.  ``bench`` and
+float32 in both precision modes.  ``--minibatch`` runs stepwise EM
+(``-i`` counts epochs), with ``--stream-groups``, ``--no-stream-prefetch``
+and ``--stream-prep-workers`` as in the reference; ``-f`` may name a
+``save_dir`` store, which is read memory-mapped.  ``fit`` prints the route
+(and, stepwise, the minibatch layout) before its report.  Knobs this
+engine does not run yet (annealing, refine, split-merge, spectral init,
+mesh axes > 1) are refused by the trainer, never ignored.  ``bench`` and
 ``verify-parity`` stay with the JAX package for now.
 """
 
@@ -89,11 +94,15 @@ def _base_parser(sub: argparse.ArgumentParser) -> None:
         "--debug-nans", action="store_true",
         help="raise on the first non-finite parameter (checked per chunk)",
     )
-    sub.add_argument("--minibatch", type=int, default=0, help="stepwise EM (not ported)")
+    sub.add_argument("--minibatch", type=int, default=0,
+                     help="stepwise EM with minibatches of this many rows (0: classic EM)")
     sub.add_argument("--kappa", type=float, default=0.6)
-    sub.add_argument("--stream-groups", type=int, default=0)
-    sub.add_argument("--no-stream-prefetch", action="store_true")
-    sub.add_argument("--stream-prep-workers", type=int, default=0)
+    sub.add_argument("--stream-groups", type=int, default=0,
+                     help="stepwise: minibatches per dispatch group (0: the whole epoch)")
+    sub.add_argument("--no-stream-prefetch", action="store_true",
+                     help="stepwise: no look-ahead group (one group on the device)")
+    sub.add_argument("--stream-prep-workers", type=int, default=0,
+                     help="stepwise: host prep processes (0: auto, 1: in-thread)")
     sub.add_argument("--anneal-beta0", type=float, default=1.0, help="(not ported)")
     sub.add_argument("--anneal-sweeps", type=int, default=0)
     sub.add_argument("--refine-rounds", type=int, default=0, help="(not ported)")
@@ -108,7 +117,7 @@ def _base_parser(sub: argparse.ArgumentParser) -> None:
 
 
 def _make_config(args, n_folds: int = 1):
-    from trigenicinteractionpredictor_tpu.config import (
+    from trigenicinteractionpredictor_tpu_torch.config import (
         Config,
         DataConfig,
         EngineConfig,
@@ -159,7 +168,7 @@ def _make_config(args, n_folds: int = 1):
 
 
 def cmd_fit(args) -> int:
-    from trigenicinteractionpredictor_tpu.utils.logging import JsonlLogger
+    from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger
     from trigenicinteractionpredictor_tpu_torch.data import train_test_split
     from trigenicinteractionpredictor_tpu_torch.device import resolve_device
     from trigenicinteractionpredictor_tpu_torch.eval import evaluate
@@ -190,6 +199,7 @@ def cmd_fit(args) -> int:
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    print(json.dumps({"route": result.dispatch.get("kernel"), "stepwise": result.layout}))
     report = evaluate(result.states, test, result.final_loglik)
     write_text_dump(
         os.path.join(cfg.out_dir, "params"), result.states, result.ll_trace,
@@ -274,7 +284,7 @@ def cmd_predict(args) -> int:
 
 
 def cmd_analyze(args) -> int:
-    from trigenicinteractionpredictor_tpu.config import DataConfig
+    from trigenicinteractionpredictor_tpu_torch.config import DataConfig
     from trigenicinteractionpredictor_tpu_torch.analysis import (
         analyze_checkpoint,
         write_analysis,

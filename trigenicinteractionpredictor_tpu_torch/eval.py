@@ -7,7 +7,7 @@ from typing import Optional
 
 import numpy as np
 
-from trigenicinteractionpredictor_tpu.data.packing import TripletDataset
+from trigenicinteractionpredictor_tpu_torch.data.packing import TripletDataset
 from trigenicinteractionpredictor_tpu_torch.models.mmsbm import ModelState
 from trigenicinteractionpredictor_tpu_torch.ops.em import log_likelihood, make_batch
 from trigenicinteractionpredictor_tpu_torch.ops.metrics import auc, average_precision

@@ -38,6 +38,9 @@ _SIGNATURES = {
     # theta, p, trip, rat, w, theta_hat, p_hat, ll, scale,
     # S, B, G, K, R, splits, estep_smem, cross_threads, cross_smem, stream
     "tip_em_sweep_large_k": [_P] * 9 + [_I] * 9 + [_P],
+    # th1, th2, th3, p, trip, rat, w, theta_hat, p_hat, ll, scale,
+    # S, B, G, K, R, splits, estep_smem, cross_threads, cross_smem, stream
+    "tip_em_hybrid": [_P] * 11 + [_I] * 9 + [_P],
     # theta, p, trip, out, S, B, G, K, R, ir, k_chunk, threads, smem_bytes, stream
     "tip_score": [_P] * 4 + [_I] * 9 + [_P],
     # theta, p, trip, rat, w, streams, p_hat, ll,

@@ -143,15 +143,20 @@ def position_marginals(theta, p, batch: Batch):
     """The arity-3 sweep without its theta_hat scatter: (the three per-row
     position marginals th_pos * A_pos * w/D, each [..., B, K]; p_hat; L).
     The large-G routes scatter the marginals through their plans."""
-    K = theta.shape[-1]
-    R = p.shape[-1]
-    lead = theta.shape[:-2]
-    B = batch.triplets.shape[0]
-    rd = len(lead)  # row axis of the per-row tensors
-    r = batch.ratings
-    w = batch.weights.to(theta.dtype)
+    return rows_marginals(*_gather(theta, batch.triplets), p, batch.ratings, batch.weights)
 
-    th1, th2, th3 = _gather(theta, batch.triplets)
+
+def rows_marginals(th1, th2, th3, p, ratings, weights):
+    """:func:`position_marginals` on theta rows already gathered per
+    position (each [..., B, K])."""
+    K = th1.shape[-1]
+    R = p.shape[-1]
+    lead = th1.shape[:-2]
+    B = th1.shape[-2]
+    rd = len(lead)  # row axis of the per-row tensors
+    r = ratings
+    w = weights.to(th1.dtype)
+
     # T_all[..., b, k, l, r] = sum_m th3[b, m] p[k, l, m, r]
     p_m = p.movedim(-2, -4).reshape(lead + (K, K * K * R))
     T = _select_rating(
@@ -171,7 +176,7 @@ def position_marginals(theta, p, batch: Batch):
     vals = (th1 * A1 * sc, th2 * A2 * sc, th3 * A3 * sc)
 
     V = W * sc                                                   # [..., B, K^2]
-    onehot = torch.nn.functional.one_hot(r.long(), R).to(theta.dtype)  # [B, R]
+    onehot = torch.nn.functional.one_hot(r.long(), R).to(th1.dtype)  # [B, R]
     th3r = (th3.unsqueeze(-1) * onehot.unsqueeze(-2)).reshape(lead + (B, K * R))
     cross = torch.matmul(V.transpose(-1, -2), th3r)              # [..., K^2, K*R]
     p_hat = p * cross.reshape(p.shape)

@@ -60,7 +60,7 @@ def sweep_plan(k: int, n_ratings: int) -> Optional[Plan]:
     estep_smem = 4 * (x_floats + 3 * ESTEP_ROWS * ts + 7 * ESTEP_ROWS)
     lq = (k + 3) // 4
     cross_threads = -(-n_ratings * lq * lq // 32) * 32
-    cross_smem = 4 * (2 * CROSS_ROWS * 4 * lq + 4 * CROSS_ROWS)
+    cross_smem = 4 * (2 * CROSS_ROWS * 4 * lq + 5 * CROSS_ROWS)
     if max(estep_smem, cross_smem) > _SMEM_LIMIT or cross_threads > 1024:
         return None
     return Plan(estep_smem, cross_threads, cross_smem)

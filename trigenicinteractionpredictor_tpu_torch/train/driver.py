@@ -25,8 +25,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from trigenicinteractionpredictor_tpu.config import Config
-from trigenicinteractionpredictor_tpu.utils.logging import JsonlLogger
+from trigenicinteractionpredictor_tpu_torch.config import Config
 from trigenicinteractionpredictor_tpu_torch.data import (
     TripletDataset,
     kfold_splits,
@@ -34,6 +33,7 @@ from trigenicinteractionpredictor_tpu_torch.data import (
 )
 from trigenicinteractionpredictor_tpu_torch.eval import evaluate
 from trigenicinteractionpredictor_tpu_torch.train.trainer import fit
+from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger
 
 
 @dataclass

@@ -1,36 +1,39 @@
-"""The classic full-batch EM fit loop on one device (counterpart of the
-classic branch of the reference's ``train/trainer.py::fit``).
+"""The EM fit loops on one device (counterpart of the reference's
+``train/trainer.py::fit`` and ``_run_stepwise``).
 
-All S restarts ride a leading axis of one state; each sweep is one call of
-the dispatched stats function (a kernel route on CUDA, chosen by
-``cfg.engine.backend`` and the shape; the plain sweep, chunked by
-``cfg.engine.jnp_row_chunk`` rows, elsewhere or with ``backend="jnp"``)
-plus ``normalize_from_stats``.  The large-G routes get their host plans,
-built once per fit, on the batch.
-The host loop runs the sweeps between likelihood checks, records every
-``likelihood_freq`` sweeps the L of the state *before* the chunk's last
-sweep (the reference's semantics), early-stops on |dL| < tol one check
-late (the trace is read after the next chunk is queued, so the read
-overlaps device work), and checkpoints.
+Classic (full-batch) EM: all S restarts ride a leading axis of one state;
+each sweep is one call of the dispatched stats function (a kernel route on
+CUDA, chosen by ``cfg.engine.backend`` and the shape; the plain sweep,
+chunked by ``cfg.engine.jnp_row_chunk`` rows, elsewhere or with
+``backend="jnp"``) plus ``normalize_from_stats``.  The large-G routes get
+their host plans, built once per fit, on the batch.  The host loop runs the
+sweeps between likelihood checks, records every ``likelihood_freq`` sweeps
+the L of the state *before* the chunk's last sweep (the reference's
+semantics), early-stops on |dL| < tol one check late (the trace is read
+after the next chunk is queued, so the read overlaps device work), and
+checkpoints.
 
-Not carried by this slice, and refused with ``NotImplementedError``:
-stepwise EM (``minibatch > 0``), annealing, refine and split-merge rounds,
-the spectral init, and any mesh axis above 1.
+Stepwise EM (``cfg.train.minibatch > 0``): see :func:`_run_stepwise`.
+
+Not carried yet, and refused with ``NotImplementedError``: annealing,
+refine and split-merge rounds, the spectral init, and any mesh axis
+above 1.
 """
 
 from __future__ import annotations
 
 import json
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from trigenicinteractionpredictor_tpu.config import Config
-from trigenicinteractionpredictor_tpu.data.packing import TripletDataset
-from trigenicinteractionpredictor_tpu.utils.logging import JsonlLogger, get_logger
+from trigenicinteractionpredictor_tpu_torch.config import Config
+from trigenicinteractionpredictor_tpu_torch.data.packing import TripletDataset
+from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger, get_logger
 from trigenicinteractionpredictor_tpu_torch.device import resolve_device
 from trigenicinteractionpredictor_tpu_torch.models.mmsbm import (
     ModelState,
@@ -38,18 +41,26 @@ from trigenicinteractionpredictor_tpu_torch.models.mmsbm import (
     state_from_numpy,
 )
 from trigenicinteractionpredictor_tpu_torch.ops import _build
-from trigenicinteractionpredictor_tpu_torch.ops.dispatch import resolve_stats_fn
-from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import apply_g1_order, make_g1_plan
-from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import make_scatter_plan
+from trigenicinteractionpredictor_tpu_torch.ops.dispatch import (
+    PLAIN_NAME,
+    resolve_stats_fn,
+    stats_fn_for,
+)
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
+    Batch,
+    SweepStats,
     log_likelihood,
     make_batch,
     normalize_from_stats,
 )
+from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import apply_g1_order, make_g1_plan
+from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import make_scatter_plan
+from trigenicinteractionpredictor_tpu_torch.ops.stepwise import stepwise_group, zero_stats_like
 from trigenicinteractionpredictor_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from trigenicinteractionpredictor_tpu_torch.train.stream_prep import StreamPrep
 
 
 @dataclass
@@ -63,6 +74,7 @@ class FitResult:
     triplets_per_sec: float
     wall_seconds: float
     dispatch: dict = field(default_factory=dict)
+    layout: dict = field(default_factory=dict)  # stepwise: minibatch, groups, padded rows
 
 
 def _dispatch_extra(dispatch_info: dict) -> dict:
@@ -78,8 +90,6 @@ def _dispatch_extra(dispatch_info: dict) -> dict:
 def _check_scope(cfg: Config) -> None:
     tcfg = cfg.train
     missing = []
-    if tcfg.minibatch > 0:
-        missing.append(f"minibatch={tcfg.minibatch} (stepwise EM)")
     if tcfg.anneal_beta0 < 1.0:
         missing.append(f"anneal_beta0={tcfg.anneal_beta0} (annealing)")
     if tcfg.refine_rounds > 0:
@@ -96,6 +106,20 @@ def _check_scope(cfg: Config) -> None:
             "not ported to the PyTorch engine yet: " + ", ".join(missing)
             + "; the JAX package (trigenicinteractionpredictor_tpu) runs them"
         )
+
+
+def _check_ids(ds: TripletDataset) -> None:
+    """Raise unless every real row's gene ids lie in [0, G) and its rating
+    in [0, R); reads the rows in chunks (a memmapped store stays on disk)."""
+    G, R = ds.n_genes, ds.n_ratings
+    step = TripletDataset._HOST_CHUNK
+    for i in range(0, ds.n_rows, step):
+        real = np.asarray(ds.weights[i:i + step]) > 0
+        trip = np.asarray(ds.triplets[i:i + step])[real]
+        rat = np.asarray(ds.ratings[i:i + step])[real]
+        if real.any() and (trip.min() < 0 or trip.max() >= G
+                           or rat.min() < 0 or rat.max() >= R):
+            raise ValueError(f"gene ids must lie in [0, {G}) and ratings in [0, {R})")
 
 
 def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
@@ -147,18 +171,21 @@ def fit(
         )
     S, K = tcfg.samples, tcfg.k
     G, R, arity = train_ds.n_genes, train_ds.n_ratings, train_ds.arity
-    real = train_ds.weights > 0
-    if real.any() and (
-        train_ds.triplets[real].min() < 0 or train_ds.triplets[real].max() >= G
-        or train_ds.ratings[real].min() < 0 or train_ds.ratings[real].max() >= R
-    ):
-        raise ValueError(f"gene ids must lie in [0, {G}) and ratings in [0, {R})")
+    _check_ids(train_ds)
+    stepwise = tcfg.minibatch > 0
 
     if stats_fn is None:
         stats_fn = resolve_stats_fn(
             dev, arity, G, K, S, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk,
             backend=cfg.engine.backend, n_rows=train_ds.n_rows,
+            static_rows=not stepwise,
         )
+    if stepwise and (getattr(stats_fn, "needs_plan", False)
+                     or getattr(stats_fn, "needs_g1plan", False)):
+        # A plan route bakes one whole-dataset row order; stepwise reshuffles
+        # the rows every epoch (the reference's trainer.py:228-236).
+        log.log("backend", kernel=PLAIN_NAME, reason="static row order vs stepwise")
+        stats_fn = stats_fn_for(PLAIN_NAME, row_chunk=cfg.engine.jnp_row_chunk or 16384)
     # Both engine precision modes run exact float32 here: the kernels use
     # no tensor cores and the plain path runs with TF32 off.
     dispatch_info = {
@@ -179,8 +206,13 @@ def fit(
         log.log("kernels_built", seconds=_build.build_info["seconds"],
                 cached=_build.build_info["cached"])
 
+    def fresh_states() -> ModelState:
+        return init_state(G, K, R, alpha=tcfg.init_alpha, arity=arity, samples=S,
+                          seed=tcfg.seed, device=dev)
+
     start_sweep = 0
     ll_rows: List[np.ndarray] = []
+    resume_extra: dict = {}
     if init_states is not None:
         states = state_from_numpy(init_states.theta, init_states.p, dev)
     elif resume is not None:
@@ -189,17 +221,35 @@ def fit(
         start_sweep = ck["sweep"]
         if ck["ll_trace"].size:
             ll_rows = list(np.atleast_2d(ck["ll_trace"]))
+        resume_extra = ck["extra"]
         log.log("resume", path=resume, sweep=start_sweep)
     else:
-        states = init_state(
-            G, K, R, alpha=tcfg.init_alpha, arity=arity, samples=S,
-            seed=tcfg.seed, device=dev,
-        )
+        states = fresh_states()
     want = (S, G, K)
     if tuple(states.theta.shape) != want or states.arity != arity:
         raise ValueError(
             f"initial states {tuple(states.theta.shape)} / arity {states.arity} "
             f"do not match samples, genes, k = {want} / arity {arity}"
+        )
+
+    if stepwise:
+        carry = None
+        if resume is not None:
+            if "stepwise_t" in resume_extra:
+                carry = (
+                    SweepStats(*(torch.as_tensor(resume_extra[name], device=dev)
+                                 for name in ("ema_theta_hat", "ema_p_hat", "ema_loglik"))),
+                    float(resume_extra["stepwise_t"]),
+                )
+            else:
+                # A checkpoint without the EMA carry: start afresh (logged),
+                # as the reference does, so a relaunched driver unit runs.
+                log.log("stepwise_restart", ignored_resume=resume)
+                states, start_sweep, ll_rows = fresh_states(), 0, []
+        return _run_stepwise(
+            cfg, train_ds, states, stats_fn, dev, log, checkpoint_path,
+            start_epoch=start_sweep, ll_rows=ll_rows, carry=carry,
+            dispatch_info=dispatch_info,
         )
 
     batch = _make_fit_batch(train_ds, stats_fn, dev, log)
@@ -299,4 +349,250 @@ def fit(
         triplets_per_sec=tps,
         wall_seconds=wall,
         dispatch=dispatch_info,
+    )
+
+
+class _GroupStager:
+    """Host arrays of one dispatch group -> a device :class:`Batch` with a
+    leading [group] axis.
+
+    On CUDA the arrays are copied into one of two pinned host buffers, then
+    to the device with ``non_blocking=True`` on a side stream; :meth:`put`
+    returns the batch and the copy's event, and :meth:`ready` makes the
+    compute stream wait on that event before the group's first sweep.  A
+    pinned buffer is refilled only after its previous copy has finished.
+    With ``one_group`` (prefetch off) a group's copy also waits until the
+    previous group's sweeps are done (:meth:`consumed`), so the device
+    holds one group's rows; with prefetch on it holds at most two.
+    """
+
+    _KEYS = ("trip", "rat", "wts")
+
+    def __init__(self, dev: torch.device, one_group: bool):
+        self.dev = dev
+        self.one_group = one_group
+        self._pinned: List[Optional[dict]] = [None, None]
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._turn = 0
+        self._done: Optional[torch.cuda.Event] = None
+        if dev.type == "cuda":
+            self._main = torch.cuda.current_stream(dev)
+            self._side = torch.cuda.Stream(dev)
+
+    def put(self, host: dict):
+        if self.dev.type != "cuda":
+            return Batch(*(torch.from_numpy(np.array(host[k])) for k in self._KEYS)), None
+        i, self._turn = self._turn, self._turn ^ 1
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()
+        if self._pinned[i] is None:
+            self._pinned[i] = {
+                k: torch.empty(host[k].shape, dtype=torch.from_numpy(host[k]).dtype,
+                               pin_memory=True)
+                for k in self._KEYS
+            }
+        for k in self._KEYS:
+            self._pinned[i][k].numpy()[...] = host[k]
+        if self.one_group and self._done is not None:
+            self._done.synchronize()
+        with torch.cuda.device(self.dev), torch.cuda.stream(self._side):
+            out = [self._pinned[i][k].to(self.dev, non_blocking=True) for k in self._KEYS]
+            event = torch.cuda.Event()
+            event.record(self._side)
+        for t in out:
+            t.record_stream(self._main)  # freed only after the sweeps use it
+        self._copied[i] = event
+        return Batch(*out), event
+
+    def ready(self, event) -> None:
+        if event is not None:
+            self._main.wait_event(event)
+
+    def consumed(self) -> None:
+        if self.one_group and self.dev.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record(self._main)
+
+
+def _run_stepwise(
+    cfg: Config,
+    train_ds: TripletDataset,
+    states: ModelState,
+    stats_fn,
+    dev: torch.device,
+    log,
+    checkpoint_path: Optional[str],
+    start_epoch: int = 0,
+    ll_rows: Optional[List[np.ndarray]] = None,
+    carry: Optional[Tuple[SweepStats, float]] = None,
+    dispatch_info: Optional[dict] = None,
+) -> FitResult:
+    """Stepwise (incremental / minibatch) EM epochs (the reference's
+    ``train/trainer.py::_run_stepwise``).
+
+    ``cfg.train.sweeps`` counts epochs.  An epoch shuffles the padded row
+    space by (seed, epoch) (``train/stream_prep.py``), cuts it into
+    minibatches of ``minibatch`` rows (rounded up to a multiple of
+    ``batch_pad_multiple``, not lcm'd) and runs them in dispatch groups of
+    ``stream_groups`` minibatches (reduced to a divisor of their count; 0:
+    the whole epoch), each through :func:`ops.stepwise.stepwise_group`.
+    Only one group's rows are on the device at a time (two with
+    ``stream_prefetch``, whose thread preps and copies the next group while
+    the device runs this one); the dataset is never padded or copied whole,
+    so a memmapped ``save_dir`` store streams off disk.  The trace row of an
+    epoch is the mean of its groups' means.  Checkpoints carry the EMA
+    statistics and the update counter in ``extra``, so a resumed run
+    replays exactly.  The final L streams through contiguous windows of one
+    group's rows.
+    """
+    tcfg = cfg.train
+    pad = max(cfg.engine.batch_pad_multiple, 1)
+    mb = -(-tcfg.minibatch // pad) * pad
+    ds = train_ds
+    n = ds.n_rows
+    n_padded = -(-max(n, 1) // mb) * mb
+    n_mb = n_padded // mb
+    if n_mb < 2:
+        raise ValueError(
+            f"minibatch={tcfg.minibatch} (padded to {mb}) leaves {n_mb} "
+            f"minibatches of {n_padded} rows -- use classic EM instead"
+        )
+    group = tcfg.stream_groups if tcfg.stream_groups > 0 else n_mb
+    while n_mb % group:
+        group -= 1  # the largest divisor <= the request keeps epochs uniform
+    n_dispatch = n_mb // group
+    if getattr(stats_fn, "needs_rsort", False):
+        raise NotImplementedError(
+            "a stats function that needs rating-sorted minibatches is not ported "
+            "(the sort comes with the rating-sorted kernel, K9)"
+        )
+    stream_prep = StreamPrep(
+        ds,
+        layout={"seed": tcfg.seed, "n": n, "n_padded": n_padded, "mb": mb,
+                "group": group, "arity": ds.arity, "rsort": False,
+                "n_ratings": ds.n_ratings},
+        workers=tcfg.stream_prep_workers,
+    )
+    layout = {"minibatch": mb, "n_minibatches": n_mb,
+              "stream_groups": group if n_dispatch > 1 else 0,
+              "padded_rows": n_padded, "prep_workers": stream_prep.workers}
+    log.log("stepwise", kappa=tcfg.stepwise_kappa, t0=tcfg.stepwise_t0,
+            rsort_padded_mb=0, prefetch=tcfg.stream_prefetch,
+            pool_error=stream_prep.pool_error, **layout)
+
+    degrees = torch.as_tensor(ds.degrees(), device=dev)
+    n_real = ds.n_real
+    w_total = torch.tensor(np.float32(ds.weight_total()), device=dev)
+    if carry is not None:
+        ema, t = carry[0], torch.tensor(carry[1], dtype=torch.float32, device=dev)
+        log.log("stepwise_resume", epoch=start_epoch, t=float(carry[1]))
+    else:
+        ema = zero_stats_like(states)
+        t = torch.zeros((), dtype=torch.float32, device=dev)
+    config_json = cfg.to_json()
+    S = states.theta.shape[0]
+    ce = tcfg.checkpoint_every if checkpoint_path else 0
+    freq = max(tcfg.likelihood_freq, 1)
+    ll_rows = list(ll_rows or [])
+    prev_check: Optional[np.ndarray] = None
+    epoch = start_epoch
+    stop = False
+    prefetch = tcfg.stream_prefetch
+    stager = _GroupStager(dev, one_group=not prefetch)
+
+    def prep_group(ep: int, d: int):
+        return stager.put(stream_prep.prep_group(ep, d))
+
+    def checkpoint() -> None:
+        save_checkpoint(
+            checkpoint_path, states, epoch,
+            np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
+            config_json=config_json,
+            extra={"ema_theta_hat": ema.theta_hat, "ema_p_hat": ema.p_hat,
+                   "ema_loglik": ema.loglik,
+                   "stepwise_t": np.asarray(t.item(), dtype=np.float32),
+                   **_dispatch_extra(dispatch_info or {})},
+        )
+
+    t0_wall = time.perf_counter()
+    prep_pool = ThreadPoolExecutor(max_workers=1)
+    prep_future = None
+    try:
+        while epoch < tcfg.sweeps and not stop:
+            ll_groups = []
+            for d in range(n_dispatch):
+                if prep_future is None:
+                    prep_future = prep_pool.submit(prep_group, epoch, d)
+                batches, copied = prep_future.result()
+                prep_future = None
+                # Queue the next group's prep and copy before this group's
+                # sweeps: they return once enqueued, so the thread works
+                # while the device runs.
+                if prefetch:
+                    if d + 1 < n_dispatch:
+                        prep_future = prep_pool.submit(prep_group, epoch, d + 1)
+                    elif epoch + 1 < tcfg.sweeps:
+                        prep_future = prep_pool.submit(prep_group, epoch + 1, 0)
+                stager.ready(copied)
+                states, ema, ll_g, t = stepwise_group(
+                    states, ema, t, batches, degrees, w_total, stats_fn,
+                    kappa=tcfg.stepwise_kappa, t0=tcfg.stepwise_t0,
+                )
+                del batches
+                stager.consumed()
+                ll_groups.append(ll_g)
+                if tcfg.debug_nans and not (
+                    torch.isfinite(states.theta).all() and torch.isfinite(states.p).all()
+                ):
+                    raise FloatingPointError(
+                        f"non-finite parameters in epoch {epoch + 1}, group {d}")
+            ll = torch.stack(ll_groups).mean(0)
+            epoch += 1
+            if epoch % freq == 0 or epoch == tcfg.sweeps:
+                ll_np = ll.cpu().numpy().astype(np.float64)
+                ll_rows.append(ll_np)
+                dt = time.perf_counter() - t0_wall
+                log.log(
+                    "epoch", epoch=epoch, ll_best=float(ll_np.max()),
+                    ll_mean=float(ll_np.mean()),
+                    triplets_per_sec=epoch * n_real / max(dt, 1e-9),
+                )
+                if tcfg.tol > 0 and prev_check is not None:
+                    if np.all(np.abs(ll_np - prev_check) < tcfg.tol):
+                        stop = True
+                        log.log("early_stop", epoch=epoch, tol=tcfg.tol)
+                prev_check = ll_np
+            if ce > 0 and epoch % ce == 0:
+                checkpoint()
+    finally:
+        prep_pool.shutdown(wait=True)  # a queued prep must not outlive the slots
+        stream_prep.close()
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0_wall
+    # Final full-data L over contiguous windows of one group's rows (L is
+    # additive over rows), so the device never holds more than a group.
+    window = group * mb
+    final_ll = np.zeros(S, dtype=np.float64)
+    for lo in range(0, n, window):
+        hi = min(lo + window, n)
+        wb = make_batch(*(np.array(a[lo:hi]) for a in (ds.triplets, ds.ratings, ds.weights)),
+                        dev)
+        final_ll += (log_likelihood(states, wb, row_chunk=cfg.engine.jnp_row_chunk)
+                     .cpu().numpy().astype(np.float64))
+    tps = (epoch - start_epoch) * n_real / max(wall, 1e-9)
+    log.log("fit_done", sweeps=epoch, wall_s=wall, triplets_per_sec=tps,
+            ll_best=float(final_ll.max()), mode="stepwise")
+    if checkpoint_path and epoch > start_epoch:
+        checkpoint()
+    return FitResult(
+        states=states,
+        final_loglik=final_ll,
+        ll_trace=np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
+        sweeps_run=epoch,
+        triplets_per_sec=tps,
+        wall_seconds=wall,
+        dispatch=dispatch_info or {},
+        layout=layout,
     )
