@@ -7,6 +7,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device   -- needs CUDA; prints the card's name and power limit;
 2. build    -- compiles the port's CUDA kernels from csrc/ with nvcc;
+2b. the integrity sentinel -- ``check_em_integrity`` with its verdict cache
+               in a temp file: every probe's kernel, shape, error over its
+               scale and ms; a second call hits the in-process cache and a
+               third (in-process cache cleared) the disk cache, both with
+               no launch; a K1 output scaled by 0.9 fails its probe, and the
+               check raises ``ComputeIntegrityError`` on it.  Later fits
+               find the verdict cached, so the probes' launches count in no
+               later phase;
 3. K1       -- the EM sweep kernel against its plain PyTorch version at the
                headline shape (N = 131,072 rows, G = 1000, K = 10, R = 2,
                S = 10), with both times from CUDA events;
@@ -50,7 +58,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                copy, K1 and device time measured apart; each with the counts
                set to 0 just before and read just after; then a small
                stepwise fit through K1, K3 and K7 against the plain route's
-               stepwise fit.
+               stepwise fit;
+10. the rating-sorted fit -- K9 (em_rsorted) against its plain version and
+               float64 at the headline shape with plan tiles of 512 rows, and
+               at K9's top K (28), with K1's time (K3's at K = 28) on the same
+               rows unsorted; a 50-sweep classic ``fit`` through
+               ``em_rsorted.stats_fn()`` from phase 6's seed and split (final
+               L within FIT_RTOL of phase 6's K1 fit); a stepwise fit through
+               K9 at N = 1,048,576, G = 1000, K = 10, S = 10 (minibatch
+               131,072, 4 stream groups, 2 epochs: 16 launches) against the
+               same fit on K1; each fit with the counts set to 0 just before
+               and read just after.
 
 The line before the last holds the kernels' record as JSON (``launches``
 sums the counted paths that run the kernel; ``bound_ms`` is the larger of
@@ -96,6 +114,7 @@ PEAK_BYTES_PER_S = 3.35e12
 K7_SHAPES = ((25, 6000, 2), (50, 4000, 1), (64, 2000, 1))  # (K, G, S)
 STEPWISE_N, STEPWISE_MB = 1_048_576, 131_072
 STREAM_N, STREAM_GROUPS, STREAM_EPOCHS = 10_000_000, 8, 2
+RSORT_TILE = 512      # plan tile of the rating-sorted path (its default)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -564,8 +583,9 @@ def stepwise_phase(card: str, dev, cli_main):
         # pool the fit used), the copy into pinned memory, the host-to-device
         # copy, the device work of the groups, and K1 alone.
         prep = StreamPrep(store, {"seed": 0, "n": store.n_rows, "n_padded": lay["padded_rows"],
-                                  "mb": MB, "group": group, "arity": 3, "rsort": False,
-                                  "n_ratings": R}, workers=0)
+                                  "mb": MB, "mb_b": MB, "group": group, "arity": 3,
+                                  "rsort": False, "n_ratings": R, "tile": 0, "n_shards": 1,
+                                  "n_tiles": 0}, workers=0)
         prep_s = pin_s = 0.0
         pinned = []
         try:
@@ -652,6 +672,207 @@ def stepwise_phase(card: str, dev, cli_main):
                 score.KERNEL_NAME: job_counts[score.KERNEL_NAME]}
 
 
+def _launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from trigenicinteractionpredictor_tpu_torch.ops import (
+        em_bd,
+        em_bdg,
+        em_bdr,
+        em_hybrid,
+        em_large_k,
+        em_rsorted,
+        score,
+    )
+
+    return {fn.kernel_name: fn for fn in (
+        em_bdr.em_ensemble_stats, em_large_k.em_ensemble_stats, em_hybrid.hybrid_stats,
+        em_bdg.bdg_estep, em_bd.em_streams, em_bd.plan_scatter, score.ensemble_score,
+        em_rsorted.rsorted_em_ensemble_stats)}
+
+
+def sentinel_phase(card: str, dev) -> None:
+    """Phase 2b (see the module docstring)."""
+    from trigenicinteractionpredictor_tpu_torch.utils import integrity
+
+    counters = _launch_counters()
+
+    def launches():
+        return sum(fn.launches for fn in counters.values())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        integrity.CACHE_PATH = os.path.join(tmp, "verdicts.json")
+        integrity.clear_cache()
+        runs = integrity.probe_runs
+        t0 = time.perf_counter()
+        assert integrity.check_em_integrity(dev, 3)
+        first_s = time.perf_counter() - t0
+        for r in integrity.last_probes:
+            print(f"[sentinel] {r.name} {r.kernel} ({r.shape}): max err / scale {r.err:.3e} "
+                  f"(tol {integrity._TOL:g}), {r.ms:.3f} ms ({card})")
+        assert integrity.probe_runs == runs + 1
+        assert len(integrity.last_probes) == 8 and all(r.ok for r in integrity.last_probes)
+        before = launches()
+        t0 = time.perf_counter()
+        assert integrity.check_em_integrity(dev, 3)
+        cached_s = time.perf_counter() - t0
+        integrity.clear_cache()
+        t0 = time.perf_counter()
+        assert integrity.check_em_integrity(dev, 3)
+        disk_s = time.perf_counter() - t0
+        assert launches() == before and integrity.probe_runs == runs + 1
+        print(f"[sentinel] first call {first_s:.3f} s (probes and their CPU references); "
+              f"in-process cache hit {cached_s * 1e3:.4f} ms, disk cache hit "
+              f"{disk_s * 1e3:.3f} ms, no launch ({card})")
+
+        # A corrupt kernel output fails its probe, and the check refuses it.
+        scaled = lambda out: out._replace(theta_hat=out.theta_hat * 0.9)  # noqa: E731
+        k1 = next(p for p in integrity.probes(3) if p.name == "K1")
+        bad = integrity.run_probe(k1, dev, tamper=scaled)
+        print(f"[sentinel] K1 with theta_hat x 0.9: ok={bad.ok}, max err / scale {bad.err:.3e}")
+        assert not bad.ok
+        # The same corruption inside check_em_integrity (its K1 probe's
+        # output scaled), with a verdict cache of its own: refused.
+        real_probes, good_cache = integrity.probes, integrity.CACHE_PATH
+
+        def corrupted(*args, **kwargs):
+            return [p._replace(run=lambda d, sh, _, run=p.run: run(d, sh, scaled))
+                    if p.name == "K1" else p for p in real_probes(*args, **kwargs)]
+
+        try:
+            integrity.probes = corrupted
+            integrity.CACHE_PATH = os.path.join(tmp, "corrupt.json")
+            integrity.clear_cache()
+            try:
+                integrity.check_em_integrity(dev, 3)
+            except integrity.ComputeIntegrityError as exc:
+                print(f"[sentinel] refused: {exc}")
+                assert "K1 (" in str(exc) and "over tolerance" in str(exc), exc
+            else:
+                raise AssertionError("the sentinel passed a corrupt K1")
+            assert [r.name for r in integrity.last_probes if not r.ok] == ["K1"]
+        finally:
+            integrity.probes, integrity.CACHE_PATH = real_probes, good_cache
+            integrity.clear_cache()
+        # Leave the PASS verdict in the in-process cache for later fits.
+        runs = integrity.probe_runs
+        assert integrity.check_em_integrity(dev, 3) and integrity.probe_runs == runs
+
+
+def rsorted_phase(card: str, dev, ds, train, k1_fit) -> dict:
+    """Phase 10 (see the module docstring); ``ds`` and ``train`` are phase
+    3's rows and phase 6's split, ``k1_fit`` phase 6's fit.  Returns K9's
+    record for the kernels line."""
+    import numpy as np
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch import Config
+    from trigenicinteractionpredictor_tpu_torch.data import sample_synthetic_dataset
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+    from trigenicinteractionpredictor_tpu_torch.ops import em_bdr, em_large_k, em_rsorted
+    from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, fit
+
+    N, G, K, R, S = (HEADLINE[k] for k in ("n", "genes", "k", "ratings", "samples"))
+    k9 = em_rsorted.rsorted_em_ensemble_stats
+    quiet = JsonlLogger(None, echo=False)
+    rec = {}
+
+    # 10a. K9 against its plain version and float64, with K1 (K3) beside it
+    plan = em_rsorted.rating_sort_pad(ds.ratings, R, tile=RSORT_TILE)
+    trip, rat, w = em_rsorted.apply_rating_sort(plan, ds.triplets, ds.ratings, ds.weights)
+    batch = make_batch(trip, rat, w, dev, tile_rating=plan.tile_r)
+    unsorted = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+    n_real = int((ds.weights > 0).sum())
+    for k in (K, em_rsorted.MAX_K):
+        shape = f"N={N} (plan {plan.n_rows}), G={G}, K={k}, R={R}, S={S}, tile {RSORT_TILE}"
+        st = init_state(G, k, R, samples=S, seed=1, device=dev)
+        chunk = 0 if k == K else 16_384
+        out = k9(st.theta, st.p, batch, RSORT_TILE)
+        ref = em_rsorted.rsorted_em_ensemble_stats_reference(
+            st.theta, st.p, batch, RSORT_TILE, row_chunk=chunk)
+        f64 = em_rsorted.rsorted_em_ensemble_stats_reference(
+            st.theta.double(), st.p.double(), batch, RSORT_TILE, row_chunk=4096)
+        torch.cuda.synchronize()
+        err = _check_stats(f"K9 {shape}", out, ref, f64)
+        del out, ref, f64
+        other = em_bdr if k == K else em_large_k
+        t = {
+            "kernel": _time_ms(lambda: k9(st.theta, st.p, batch, RSORT_TILE), 20 if k == K else 5),
+            "plain": _time_ms(lambda: em_rsorted.rsorted_em_ensemble_stats_reference(
+                st.theta, st.p, batch, RSORT_TILE, row_chunk=chunk), 3),
+            "unsorted": _time_ms(lambda: other.em_ensemble_stats(st.theta, st.p, unsorted),
+                                 20 if k == K else 5),
+        }
+        # bytes: theta, p, the plan's rows (3 ids and a weight each) and its
+        # tile table in, the stats out; operations: the real rows' sweep
+        bound = _bound(_sweep_flops(n_real, k, S),
+                       _sweep_bytes(plan.n_rows, G, k, R, S) - 4.0 * plan.n_rows
+                       + 4.0 * plan.tile_r.size)
+        print(f"[K9] {shape}: {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"{other.KERNEL_NAME} on the rows unsorted {t['unsorted']:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) ({card})")
+        rec[k] = dict(t, err=err, bound=bound)
+        del st
+    del batch, unsorted
+    torch.cuda.empty_cache()
+    counters = _launch_counters()
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    # 10b. the classic fit through K9 at the headline shape, phase 6's seed
+    sweeps = 50
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=K, sweeps=sweeps, samples=S, likelihood_freq=10, seed=0))
+    reset()
+    res = fit(cfg, train, device=dev, logger=quiet, stats_fn=em_rsorted.stats_fn(RSORT_TILE))
+    classic = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    drop = _max_drop(res.ll_trace)
+    print(f"[K9 fit] dispatch {json.dumps(res.dispatch, sort_keys=True)}; launches {classic}")
+    print(f"[K9 fit] L trace (best restart) {res.ll_trace.max(axis=1).tolist()}, largest "
+          f"relative L drop {drop:.3e}; final L {res.final_loglik.tolist()} vs K1's "
+          f"{k1_fit.final_loglik.tolist()}; {res.sweeps_run / res.wall_seconds:.2f} sweeps/s "
+          f"(K1 {k1_fit.sweeps_run / k1_fit.wall_seconds:.2f}), "
+          f"{res.triplets_per_sec * S:.4e} restart-triplet updates/s ({card})")
+    assert res.dispatch["kernel"] == em_rsorted.KERNEL_NAME and res.dispatch["tile_b"] == RSORT_TILE
+    assert classic == {em_rsorted.KERNEL_NAME: sweeps}, classic
+    assert res.ll_trace.shape == (sweeps // 10, S) and np.isfinite(res.ll_trace).all()
+    assert drop <= LL_DROP_RTOL
+    np.testing.assert_allclose(res.final_loglik, k1_fit.final_loglik, rtol=FIT_RTOL)
+
+    # 10c. a stepwise fit through K9 against the same fit on K1
+    big, _, _ = sample_synthetic_dataset(STEPWISE_N, G, K, n_ratings=R, seed=13)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, sweeps=2, likelihood_freq=1, minibatch=STEPWISE_MB, stream_groups=4))
+    reset()
+    sw = fit(cfg, big, device=dev, logger=quiet, stats_fn=em_rsorted.stats_fn(RSORT_TILE))
+    stepwise = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    on_k1 = fit(cfg, big, device=dev, logger=quiet, stats_fn=em_bdr.em_ensemble_stats)
+    print(f"[K9 stepwise] N={STEPWISE_N}, G={G}, K={K}, S={S}: layout "
+          f"{json.dumps(sw.layout, sort_keys=True)}; launches {stepwise}; epoch trace (best) "
+          f"{sw.ll_trace.max(axis=1).tolist()}; final L {sw.final_loglik.tolist()} vs K1's "
+          f"{on_k1.final_loglik.tolist()}; {sw.triplets_per_sec:.4e} rows/s (K1 "
+          f"{on_k1.triplets_per_sec:.4e}) ({card})")
+    n_mb = sw.layout["n_minibatches"]
+    assert sw.layout["rsort_padded_mb"] == (STEPWISE_MB // RSORT_TILE + R) * RSORT_TILE
+    assert stepwise == {em_rsorted.KERNEL_NAME: 2 * n_mb} and 2 * n_mb == 16, stepwise
+    np.testing.assert_allclose(sw.final_loglik, on_k1.final_loglik, rtol=FIT_RTOL)
+    del big
+
+    head = rec[K]
+    return {
+        "name": "em_rsorted", "route": "cuda",
+        "source": "trigenicinteractionpredictor_tpu_torch/csrc/em_rsorted.cu",
+        "replaces": "trigenicinteractionpredictor_tpu/ops/pallas_em_rsorted.py:267",
+        "launches": classic[em_rsorted.KERNEL_NAME] + stepwise[em_rsorted.KERNEL_NAME],
+        "max_abs_err": max(r["err"] for r in rec.values()),
+        "ms": head["kernel"], "plain_ms": head["plain"], "bound_ms": head["bound"][0],
+        "bound_by": head["bound"][1], "library_ms": None,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -705,6 +926,9 @@ def main() -> int:
     for line in _build.build_info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}")
+
+    # 2b. the integrity sentinel
+    sentinel_phase(card, dev)
 
     # 3. K1 against its plain version at the headline shape
     N, G, K, R, S = (HEADLINE[k] for k in ("n", "genes", "k", "ratings", "samples"))
@@ -909,6 +1133,9 @@ def main() -> int:
     # 9. stepwise EM
     k7_kernel, stepwise_counts = stepwise_phase(card, dev, cli_main)
 
+    # 10. the rating-sorted fit
+    k9_kernel = rsorted_phase(card, dev, ds, train, res)
+
     src = "trigenicinteractionpredictor_tpu_torch/csrc/"
     ref = "trigenicinteractionpredictor_tpu/ops/"
     k3_50 = k3_times[50]
@@ -938,7 +1165,9 @@ def main() -> int:
         },
         *large_g_kernels,
         k7_kernel,
+        k9_kernel,
     ]
+    assert len(kernels) == 9
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ from trigenicinteractionpredictor_tpu_torch.ops import (
     em_hybrid,
     em_large_g,
     em_large_k,
+    em_rsorted,
     score,
 )
 from trigenicinteractionpredictor_tpu_torch.ops.dispatch import plain_stats
@@ -429,3 +430,91 @@ def test_stepwise_fit_through_each_route_matches_plain(dev, route, k):
     assert via_kernel.dispatch["kernel"] == route
     np.testing.assert_allclose(via_kernel.final_loglik, via_plain.final_loglik, rtol=1e-4)
     np.testing.assert_allclose(via_kernel.ll_trace, via_plain.ll_trace, rtol=1e-4)
+
+
+def _rsorted_case(k, r, s, tile_b, dev, seed=71):
+    """1500 rows with every row of rating 1 moved to rating 0 (class 1 is
+    empty and gets its one pad tile), a tenth of the rows weight 0, sorted
+    into plan tiles of ``tile_b``; the per-row ratings handed to K9 are
+    scrambled, since it must read the tile table only."""
+    ds, st = _case(1500, 70, k, r, s, seed=seed, dev=dev)
+    rat = np.where(ds.ratings == 1, 0, ds.ratings).astype(np.int32)
+    w = ds.weights.copy()
+    w[::10] = 0.0
+    plan = em_rsorted.rating_sort_pad(rat, r, tile=tile_b)
+    trip, rs, ws = em_rsorted.apply_rating_sort(plan, ds.triplets, rat, w)
+    tb = make_batch(trip, rs, ws, dev, tile_rating=plan.tile_r)
+    scrambled = tb._replace(ratings=torch.flip(tb.ratings, (0,)))
+    return st, tb, scrambled
+
+
+@pytest.mark.parametrize(
+    "k,r,s,tile_b",
+    [(3, 2, 1, 64), (3, 3, 3, 512), (10, 2, 10, 512), (10, 3, 3, 64), (20, 2, 3, 64),
+     (20, 3, 10, 512), (em_rsorted.MAX_K, 2, 1, 64), (em_rsorted.MAX_K, 3, 3, 512)],
+)
+def test_k9_matches_plain(dev, k, r, s, tile_b):
+    """K9 across K = 3..28 (its top), R = 2 and 3, S = 1, 3 and 10, plan
+    tiles of 64 and 512 rows, with an empty rating class, weight-0 rows,
+    block runs that cross rating classes, and scrambled per-row ratings."""
+    st, tb, scrambled = _rsorted_case(k, r, s, tile_b, dev)
+    launches = em_rsorted.rsorted_em_ensemble_stats.launches
+    out = em_rsorted.rsorted_em_ensemble_stats(st.theta, st.p, scrambled, tile_b)
+    ref = em_rsorted.rsorted_em_ensemble_stats_reference(st.theta, st.p, tb, tile_b)
+    torch.cuda.synchronize()
+    assert em_rsorted.rsorted_em_ensemble_stats.launches == launches + 1
+    np.testing.assert_allclose(out.theta_hat.cpu(), ref.theta_hat.cpu(), atol=1e-4)
+    np.testing.assert_allclose(out.p_hat.cpu(), ref.p_hat.cpu(), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(out.loglik.cpu(), ref.loglik.cpu(), rtol=1e-5)
+
+
+def test_k9_refuses_what_it_does_not_take(dev):
+    st, tb, _ = _rsorted_case(4, 2, 2, 64, dev)
+    with pytest.raises(ValueError):  # no tile table
+        em_rsorted.rsorted_em_ensemble_stats(st.theta, st.p, tb._replace(tile_rating=None), 64)
+    with pytest.raises(ValueError):  # a table of another tile size
+        em_rsorted.rsorted_em_ensemble_stats(st.theta, st.p, tb, 128)
+    with pytest.raises(ValueError):  # no kernel tile divides a plan tile of 4
+        em_rsorted.rsorted_em_ensemble_stats(
+            st.theta, st.p, tb._replace(tile_rating=tb.tile_rating.repeat_interleave(16)), 4)
+    big = init_state(70, em_rsorted.MAX_K + 1, 2, samples=1, seed=2, device=dev)
+    with pytest.raises(ValueError):
+        em_rsorted.rsorted_em_ensemble_stats(big.theta, big.p, tb, 64)
+
+
+@pytest.mark.parametrize("minibatch", [0, 1024])
+def test_fit_through_k9_matches_plain_fit(dev, minibatch):
+    """Classic and stepwise EM through K9 (the trainer sorts the split or
+    every minibatch) against the plain fit from the same init."""
+    ds, _ = _case(4096, 200, 6, 2, 1, seed=3, dev=dev)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=6, sweeps=12 if not minibatch else 3, samples=3, likelihood_freq=4
+        if not minibatch else 1, seed=5, minibatch=minibatch, stream_groups=2,
+    ))
+    quiet = JsonlLogger(None, echo=False)
+    launches = em_rsorted.rsorted_em_ensemble_stats.launches
+    via_kernel = fit(cfg, ds, device=dev, logger=quiet, stats_fn=em_rsorted.stats_fn(64))
+    via_plain = fit(cfg, ds, device=dev, logger=quiet, stats_fn=plain_stats)
+    assert via_kernel.dispatch == dict(via_plain.dispatch, kernel=em_rsorted.KERNEL_NAME,
+                                       tile_b=64)
+    assert em_rsorted.rsorted_em_ensemble_stats.launches - launches == (
+        12 if not minibatch else 3 * 4)
+    np.testing.assert_allclose(via_kernel.final_loglik, via_plain.final_loglik, rtol=1e-4)
+    np.testing.assert_allclose(via_kernel.ll_trace, via_plain.ll_trace, rtol=1e-4)
+
+
+def test_integrity_sentinel_passes_on_the_card(dev, tmp_path, monkeypatch):
+    """Every probe passes on the card, the verdict lands in the disk cache,
+    and a second call launches nothing."""
+    from trigenicinteractionpredictor_tpu_torch.utils import integrity
+
+    monkeypatch.setattr(integrity, "CACHE_PATH", str(tmp_path / "verdicts.json"))
+    integrity.clear_cache()
+    assert integrity.check_em_integrity(dev, 3)
+    assert all(p.ok for p in integrity.last_probes), integrity.last_probes
+    launches = em_bdr.em_ensemble_stats.launches
+    assert integrity.check_em_integrity(dev, 3)
+    integrity.clear_cache()
+    assert integrity.check_em_integrity(dev, 3)  # from the disk cache
+    assert em_bdr.em_ensemble_stats.launches == launches

@@ -305,7 +305,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 30, names\n"
         "for n in ('analysis', 'config', 'data.kuzmin', 'utils.logging', 'ops.em_hybrid',\n"
-        "          'ops.stepwise', 'train.stream_prep', 'train.driver'):\n"
+        "          'ops.stepwise', 'train.stream_prep', 'train.driver', 'ops.em_rsorted',\n"
+        "          'ops.rsort_plan', 'utils.integrity'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] == 'trigenicinteractionpredictor_tpu')\n"

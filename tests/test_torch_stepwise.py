@@ -140,7 +140,7 @@ def test_stepwise_fit_matches_reference(arity, train_kw):
     _assert_fit_equal(tres, jres)
     groups = 2 if train_kw.get("stream_groups") in (2, 3) else 0
     assert tres.layout == {"minibatch": 256, "n_minibatches": 8, "stream_groups": groups,
-                           "padded_rows": 2048, "prep_workers": 1}
+                           "padded_rows": 2048, "prep_workers": 1, "rsort_padded_mb": 0}
     if "tol" in train_kw:
         assert tres.sweeps_run == 2 < cfg.train.sweeps
 
@@ -219,11 +219,37 @@ def test_pool_prep_equals_in_thread_prep(tmp_path):
             shared_memory.SharedMemory(name=name)
 
 
-def test_rating_sort_layout_is_refused():
-    lay = dict(_layout(700, 128, 2), rsort=True)
-    prep = stream_prep.StreamPrep(_raw(), lay, workers=1)
-    with pytest.raises(NotImplementedError, match="rating sort"):
-        prep.prep_group(0, 0)
+@pytest.mark.parametrize("workers", [1, 2])
+def test_rating_sort_group_prep_is_bit_equal_to_reference(tmp_path, workers):
+    """The rsort group prep (every minibatch rating-sorted into ft = mb /
+    tile + R tiles) equals the reference's StreamPrep for every group of
+    two epochs, tile tables included: on the calling thread, and through
+    two spawn workers over a memmapped store."""
+    rng = np.random.default_rng(4)
+    ds = _raw(1000)
+    ds = TripletDataset(ds.triplets, rng.integers(0, 3, size=1000, dtype=np.int32),
+                        ds.weights, ds.n_genes, n_ratings=3)
+    ds.save_dir(str(tmp_path / "store"))
+    store = TripletDataset.load_dir(str(tmp_path / "store"), mmap=True)
+    mb, tile, ft = 128, 32, 128 // 32 + 3
+    lay = dict(_layout(ds.n_rows, mb, 2), rsort=True, n_ratings=3, tile=tile, n_tiles=ft,
+               mb_b=ft * tile)
+    jds = JDataset(ds.triplets, ds.ratings, ds.weights, ds.n_genes, ds.n_ratings)
+    ref = jprep.StreamPrep(jds, lay, workers=1)
+    ours = stream_prep.StreamPrep(store if workers > 1 else ds, lay, workers=workers)
+    try:
+        assert ours.workers == workers and ours.pool_error is None
+        for ep in (0, 3):
+            for d in range(lay["n_padded"] // (2 * mb)):
+                a, b = ref.prep_group(ep, d), ours.prep_group(ep, d)
+                assert sorted(b) == ["rat", "tiler", "trip", "wts"]
+                assert b["trip"].shape == (2, ft * tile, 3) and b["tiler"].shape == (2, ft)
+                for key in b:
+                    np.testing.assert_array_equal(np.asarray(a[key]), b[key],
+                                                  err_msg=f"{key} {ep} {d}")
+    finally:
+        ref.close()
+        ours.close()
 
 
 def test_reference_checkpoint_resumes_in_the_port(tmp_path):
@@ -370,7 +396,8 @@ def test_cli_fit_minibatch(tmp_path, capsys):
     route = next(x for x in lines if "route" in x)
     assert route == {"route": dispatch.PLAIN_NAME,
                      "stepwise": {"minibatch": 512, "n_minibatches": 5, "stream_groups": 1,
-                                  "padded_rows": 2560, "prep_workers": 1}}
+                                  "padded_rows": 2560, "prep_workers": 1,
+                                  "rsort_padded_mb": 0}}
     report = json.load(open(os.path.join(out, "report.json")))
     assert report["sweeps"] == 3 and np.isfinite(report["ll_best"])
     events = [json.loads(x) for x in open(os.path.join(out, "events.jsonl"))]

@@ -1,0 +1,189 @@
+// K9: the rating-sorted whole-ensemble EM sweep (E-step + M-accumulate)
+// for the trigenic MMSBM, hand-written for Hopper (sm_90a).
+//
+// Replaces: trigenicinteractionpredictor_tpu/ops/pallas_em_rsorted.py,
+//   _em_tile_kernel_rsorted (launched by _pallas_stats_rsorted).  Same
+//   contract: rows in the order of a rating-sort plan (every plan tile of
+//   tile_b rows holds one rating), the int32 [n_tiles] tile -> rating
+//   table, theta [S,G,K] and p [S,K,K,K,R] in; theta_hat [S,G,K], p_hat =
+//   p * cross [S,K,K,K,R] and loglik [S] of the pre-update state out.
+//   Ratings come from the table; per-row ratings are never read.  The TPU
+//   kernel's one-hot gather/scatter matmuls, prefetched index maps and
+//   [G, S*K] accumulator served the TPU's matrix unit and are not carried.
+//
+// Supported shapes: 1 <= K <= 28 (the host plan, ops/em_rsorted.py
+// sweep_plan, checks the shared-memory budget and refuses anything larger);
+// any R (shared memory does not grow with it); any G; any S <= 65535; B a
+// whole number of plan tiles, the kernel tile dividing tile_b.
+//
+// What bounds it on the H100: K1's work (~3 K^3 multiply-adds per row and
+// restart against one rating's K^3 slice of p[s], plus 3 K scattered atomic
+// adds into theta_hat), so as for K1 at K = 10 neither the float32 rate nor
+// HBM bandwidth but shared-memory traffic of the K^3 loops and the L2
+// atomics of the scatter.  What the sort buys on the card is room: a block
+// holds one rating's slice of p[s] and of its cross-stats instead of all R,
+// which takes K from 20 (K1) to 28.
+//
+// Design: K1's (em_sweep.cu) on the tile algebra of em_tile.cuh, carved
+// with R = 1 and every row's rating 0:
+// - grid (row blocks, S): a block owns one restart s and a contiguous run
+//   of rows, walked in kernel tiles of `tile` rows; a kernel tile lies in
+//   one plan tile, so it has one rating, read from the table;
+// - the block stages that rating's slice of p[s] (K^3 floats read with
+//   stride R) and zeroes its cross-stats.  Where its run crosses into the
+//   next rating class it first flushes p * cross into that rating's slice
+//   of p_hat[s] (one atomic per nonzero cell), then restages;
+// - a tile whose table entry is out of range is skipped whole (inert);
+// - theta_hat gets one atomicAdd per (row, position, k) with nonzero
+//   weight; loglik is reduced per block, then one atomicAdd per block.
+// Weight-0 rows (a class's pad rows, the common-length pad tiles) are
+// inert: their scale is 0 and they add nothing.  The row load and the
+// p-stat flush are this file's own: em_tile.cuh's read per-row ratings and
+// all R slices of p.
+
+#include "em_tile.cuh"
+
+namespace {
+
+// Stage rating r's slice of p[s] as p_sm[m][(k,l)] and zero the cross-
+// stats (carve with R = 1: cell i = (k*K + l)*K + m).  The caller syncs.
+__device__ inline void stage_rating(const tip::Tile& t, const float* __restrict__ p_s,
+                                    int r, int R) {
+  const int K = t.K, K2 = K * K, K3 = K2 * K;
+  for (int i = threadIdx.x; i < K3; i += blockDim.x) {
+    const int m = i % K, kl = i / K;
+    t.p_sm[m * K2 + kl] = p_s[(size_t)i * R + r];
+    t.cross[i] = 0.f;
+  }
+}
+
+// Flush the staged rating's p-stats into p_hat[s][..., r] as p * cross.
+// The caller syncs before the buffers are restaged.
+__device__ inline void flush_rating(const tip::Tile& t, float* __restrict__ ph_s,
+                                    int r, int R) {
+  const int K = t.K, K2 = K * K, K3 = K2 * K;
+  for (int i = threadIdx.x; i < K3; i += blockDim.x) {
+    const float v = t.cross[i];
+    if (v != 0.f) {
+      const int m = i % K, kl = i / K;
+      atomicAdd(&ph_s[(size_t)i * R + r], t.p_sm[m * K2 + kl] * v);
+    }
+  }
+}
+
+// Row metadata and theta rows of the tile's n rows from row0 (as
+// tip::load_rows, with every rating 0: the tile's rating is staged).  Rows
+// past n and rows with an out-of-range gene id are inert.  Leaves synced.
+__device__ inline void load_rows(const tip::Tile& t, const int* __restrict__ trip,
+                                 const float* __restrict__ w,
+                                 const float* __restrict__ th_s, int row0, int n,
+                                 int G) {
+  const int K = t.K, RS = t.RS;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < t.tile; i += nt) {
+    const int b = row0 + i;
+    int g1 = 0, g2 = 0, g3 = 0;
+    bool valid = i < n;
+    if (valid) {
+      g1 = trip[3 * b];
+      g2 = trip[3 * b + 1];
+      g3 = trip[3 * b + 2];
+      valid = (unsigned)g1 < (unsigned)G && (unsigned)g2 < (unsigned)G &&
+              (unsigned)g3 < (unsigned)G;
+    }
+    t.gene[i] = valid ? g1 : 0;
+    t.gene[RS + i] = valid ? g2 : 0;
+    t.gene[2 * RS + i] = valid ? g3 : 0;
+    t.rr[i] = 0;
+    t.wv[i] = valid ? w[b] : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * K * n; i += nt) {
+    const int row = i % n, j = i / n;  // j = pos*K + k
+    const int k = j % K, pos = j / K;
+    t.th[j * RS + row] = th_s[(size_t)t.gene[pos * RS + row] * K + k];
+  }
+  __syncthreads();
+}
+
+__global__ void em_rsorted_kernel(
+    const float* __restrict__ theta,  // [S, G, K]
+    const float* __restrict__ p,      // [S, K, K, K, R]
+    const int* __restrict__ trip,     // [B, 3], rating-sorted
+    const int* __restrict__ tile_r,   // [B / tile_b]
+    const float* __restrict__ w,      // [B]
+    float* __restrict__ theta_hat,    // [S, G, K], zeroed by the caller
+    float* __restrict__ p_hat,        // [S, K, K, K, R], zeroed by the caller
+    float* __restrict__ ll,           // [S], zeroed by the caller
+    int B, int G, int K, int R, int tile, int tile_b, int rows_per_block) {
+  const int s = blockIdx.y;
+  const int K3 = K * K * K;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  extern __shared__ float smem[];
+  const tip::Tile t = tip::carve(smem, K, 1, tile);
+  const int RS = t.RS;
+
+  const float* p_s = p + (size_t)s * K3 * R;
+  float* ph_s = p_hat + (size_t)s * K3 * R;
+  const float* th_s = theta + (size_t)s * G * K;
+  float* thh_s = theta_hat + (size_t)s * G * K;
+  float ll_acc = 0.f;
+  int staged = -1;  // the rating whose slice of p[s] is in shared memory
+  const int row_begin = blockIdx.x * rows_per_block;
+  const int row_end = min(B, row_begin + rows_per_block);
+
+  for (int row0 = row_begin; row0 < row_end; row0 += tile) {
+    const int r = tile_r[row0 / tile_b];  // the same for every thread
+    if ((unsigned)r >= (unsigned)R) continue;
+    if (r != staged) {
+      if (staged >= 0) {
+        flush_rating(t, ph_s, staged, R);
+        __syncthreads();
+      }
+      stage_rating(t, p_s, r, R);
+      __syncthreads();
+      staged = r;
+    }
+    const int n = min(tile, row_end - row0);
+
+    load_rows(t, trip, w, th_s, row0, n, G);
+    ll_acc += tip::estep(t, n);
+
+    // theta_hat[gene_pos] += th_pos * A_pos * scale
+    for (int i = tid; i < 3 * K * n; i += nt) {
+      const int row = i % n, j = i / n;
+      if (t.wv[row] != 0.f) {
+        const int k = j % K, pos = j / K;
+        atomicAdd(&thh_s[(size_t)t.gene[pos * RS + row] * K + k],
+                  tip::marginal(t, pos, k, row));
+      }
+    }
+    tip::cross_acc(t, n);
+  }
+  if (staged >= 0) flush_rating(t, ph_s, staged, R);
+  tip::block_add(ll_acc, ll + s);
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  The
+// caller zeroes theta_hat, p_hat and ll and sizes smem_bytes from the host
+// plan (ops/em_rsorted.py sweep_plan).
+extern "C" int tip_em_rsorted(const void* theta, const void* p, const void* trip,
+                              const void* tile_r, const void* w, void* theta_hat,
+                              void* p_hat, void* ll, int S, int B, int G, int K,
+                              int R, int tile, int tile_b, int rows_per_block,
+                              int threads, int smem_bytes, void* stream) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        em_rsorted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((B + rows_per_block - 1) / rows_per_block, S);
+  em_rsorted_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)theta, (const float*)p, (const int*)trip,
+      (const int*)tile_r, (const float*)w, (float*)theta_hat, (float*)p_hat,
+      (float*)ll, B, G, K, R, tile, tile_b, rows_per_block);
+  return (int)cudaGetLastError();
+}

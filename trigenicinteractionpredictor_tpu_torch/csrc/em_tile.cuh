@@ -1,7 +1,8 @@
-// The row-tile algebra of the E-step kernels: K1 (em_sweep.cu) and the
-// large-G kernels (em_streams.cu, em_bdg.cu).  Each kernel gathers its rows'
-// theta and places the per-row position marginals its own way (K1 scatters
-// them into theta_hat, the others write streams or a block accumulator).
+// The row-tile algebra of the E-step kernels: K1 (em_sweep.cu), the
+// large-G kernels (em_streams.cu, em_bdg.cu) and K9 (em_rsorted.cu).  Each
+// kernel gathers its rows' theta and places the per-row position marginals
+// its own way (K1 and K9 scatter them into theta_hat, the others write
+// streams or a block accumulator).
 //
 // One block owns one restart s; p[s] and its cross-stats stay in shared
 // memory for the block's whole run of rows.  Per tile of `tile` rows the
@@ -194,13 +195,29 @@ __device__ inline void cross_acc(const Tile& t, int n) {
   __syncthreads();
 }
 
+// Add the sum of every thread's v to *dst (warp sums, then one atomic per
+// block).
+__device__ inline void block_add(float v, float* __restrict__ dst) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  __shared__ float red[32];
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((tid & 31) == 0) red[tid >> 5] = v;
+  __syncthreads();
+  if (tid < 32) {
+    float w = tid < (nt + 31) / 32 ? red[tid] : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      w += __shfl_down_sync(0xffffffffu, w, off);
+    if (tid == 0) atomicAdd(dst, w);
+  }
+}
+
 // Flush the block's p-stats into p_hat[s] as p * cross (one atomic per
 // nonzero cell), and its sum w log D into ll[s] (one atomic per block).
 __device__ inline void flush(const Tile& t, float* __restrict__ ph_s,
                              float ll_acc, float* __restrict__ ll_s) {
   const int K = t.K, K2 = K * K, K3 = K2 * K;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int c = tid; c < t.R * K3; c += nt) {
+  for (int c = threadIdx.x; c < t.R * K3; c += blockDim.x) {
     const float v = t.cross[c];
     if (v != 0.f) {
       const int m = c % K, rest = c / K;
@@ -208,17 +225,7 @@ __device__ inline void flush(const Tile& t, float* __restrict__ ph_s,
       atomicAdd(&ph_s[(kl * K + m) * t.R + r], t.p_sm[(r * K + m) * K2 + kl] * v);
     }
   }
-  __shared__ float red[32];
-  for (int off = 16; off > 0; off >>= 1)
-    ll_acc += __shfl_down_sync(0xffffffffu, ll_acc, off);
-  if ((tid & 31) == 0) red[tid >> 5] = ll_acc;
-  __syncthreads();
-  if (tid < 32) {
-    float v = tid < (nt + 31) / 32 ? red[tid] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (tid == 0) atomicAdd(ll_s, v);
-  }
+  block_add(ll_acc, ll_s);
 }
 
 }  // namespace tip

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "tip_em_bdg": [_P] * 11 + [_I] * 11 + [_P],
     # vals, perm, lid, off, out, part, L, Q, wb, SK, K, G, piece, threads, stream
     "tip_plan_scatter": [_P] * 6 + [_I] * 8 + [_P],
+    # theta, p, trip, tile_r, w, theta_hat, p_hat, ll,
+    # S, B, G, K, R, tile, tile_b, rows_per_block, threads, smem_bytes, stream
+    "tip_em_rsorted": [_P] * 8 + [_I] * 10 + [_P],
 }
 
 _lib = None

@@ -33,6 +33,10 @@ routes (``pallas-bdg-plan-grouped``, ``pallas-bd-plan-grouped``) because of
 its VMEM; the port's kernels put restarts on the grid, so one launch per
 sweep takes any S.
 
+No route returns the rating-sorted sweep K9 (``ops/em_rsorted.py``), as
+the reference's dispatch never returns its rating-sorted kernel: a caller
+asks for it with ``fit(..., stats_fn=em_rsorted.stats_fn(tile_b))``.
+
 The returned function takes (thetas [S,G,K], ps [S,...,R], batch) and
 carries ``kernel_name``, which the trainer records in events, checkpoints
 and ``FitResult``; a plan route's function also carries ``needs_plan`` or

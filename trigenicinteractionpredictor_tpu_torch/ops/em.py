@@ -41,7 +41,9 @@ class Batch(NamedTuple):
     ``Batch.scatter_*`` and ``g1_*``; see ``ops/em_large_g.py`` and
     ``ops/em_bdg.py``).  Unlike the reference's, the port's plans hold no
     pad slots and no per-tile tables: a gene-sorted slot order with CSR
-    offsets per gene block.
+    offsets per gene block.  ``tile_rating`` is the rating of each tile of
+    rating-sorted rows (``ops/em_rsorted.py``), the reference's field of
+    that name.
     """
 
     triplets: torch.Tensor
@@ -52,6 +54,7 @@ class Batch(NamedTuple):
     scatter_offsets: Optional[torch.Tensor] = None  # int32 [Q+1] CSR per gene block
     g1_lid: Optional[torch.Tensor] = None           # int32 [B] g1 - block * wb1
     g1_offsets: Optional[torch.Tensor] = None       # int32 [Q1+1] CSR of rows
+    tile_rating: Optional[torch.Tensor] = None      # int32 [n_tiles]
 
 
 class SweepStats(NamedTuple):
@@ -63,10 +66,12 @@ class SweepStats(NamedTuple):
     loglik: torch.Tensor     # f32 [...] -- L of the *pre-update* state
 
 
-def make_batch(triplets, ratings, weights, device, scatter=None, g1=None) -> Batch:
+def make_batch(triplets, ratings, weights, device, scatter=None, g1=None,
+               tile_rating=None) -> Batch:
     """Host arrays -> a contiguous device Batch (int32 ids, as the kernels
     take them).  ``scatter`` (a ScatterPlan) and ``g1`` (a G1Plan, rows
-    already in its order) attach the large-G plans."""
+    already in its order) attach the large-G plans; ``tile_rating`` (rows
+    already rating-sorted) the tile table."""
 
     def dev_i32(x):
         return torch.as_tensor(x, dtype=torch.int32, device=device).contiguous()
@@ -77,6 +82,8 @@ def make_batch(triplets, ratings, weights, device, scatter=None, g1=None) -> Bat
                      scatter_offsets=dev_i32(scatter.offsets))
     if g1 is not None:
         plans.update(g1_lid=dev_i32(g1.lid1), g1_offsets=dev_i32(g1.offsets))
+    if tile_rating is not None:
+        plans.update(tile_rating=dev_i32(tile_rating))
     return Batch(
         triplets=dev_i32(triplets),
         ratings=dev_i32(ratings),

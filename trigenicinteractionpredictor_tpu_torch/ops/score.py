@@ -83,3 +83,4 @@ def ensemble_score(thetas, ps, triplets, interact_rating: int = 1):
 
 
 ensemble_score.launches = 0
+ensemble_score.kernel_name = KERNEL_NAME

@@ -65,7 +65,8 @@ def stepwise_group(
     """
     lls = []
     for i in range(batches.triplets.shape[0]):
-        mb = Batch(batches.triplets[i], batches.ratings[i], batches.weights[i])
+        mb = Batch(batches.triplets[i], batches.ratings[i], batches.weights[i],
+                   tile_rating=None if batches.tile_rating is None else batches.tile_rating[i])
         stats = stats_fn(states.theta, states.p, mb)
         scale = w_total / torch.clamp(mb.weights.sum(), min=1.0)
         rho = (t0 + t) ** (-kappa)

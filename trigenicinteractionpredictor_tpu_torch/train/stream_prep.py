@@ -16,9 +16,12 @@ the padded index space:
    reopened by path in each worker; an in-memory one ships once at pool
    start.
 
-The port's sweeps read each row's rating, so the reference's per-minibatch
-rating sort (its ``rsort`` layout, for the bdr kernel) is not carried: a
-layout that asks for it raises.
+With ``rsort`` in the layout (a stats function that needs rating-sorted
+rows, ``ops/em_rsorted.py``) each minibatch of ``mb`` rows is stably
+sorted by rating and padded into one fixed layout of ``n_tiles`` tiles of
+``tile`` rows (``mb_b`` = n_tiles * tile rows), and the group carries the
+tile tables as ``tiler`` [group, n_shards * n_tiles] -- the reference's
+rsort branch, bit for bit.
 
 Spawn workers import this module, so it imports NumPy only (no torch:
 workers never pay for it and never touch CUDA), and it changes no
@@ -34,6 +37,11 @@ import os
 from typing import Dict
 
 import numpy as np
+
+from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (
+    apply_rating_sort,
+    rating_sort_pad,
+)
 
 
 def epoch_perm(seed: int, epoch: int, n_padded: int) -> np.ndarray:
@@ -61,19 +69,32 @@ def _gather_rows(ds_arrays, n: int, idx: np.ndarray):
     return trip, rat, wts
 
 
-def _prep_minibatches(ds_arrays, layout: Dict, gperm: np.ndarray):
+def _prep_minibatches(ds_arrays, layout: Dict, gperm: np.ndarray) -> Dict[str, np.ndarray]:
     """Gather the minibatches covered by ``gperm`` (a slice of the epoch
-    permutation, a multiple of ``mb`` rows): (trip [g, mb, arity], rat
-    [g, mb], wts [g, mb])."""
-    if layout.get("rsort"):
-        raise NotImplementedError(
-            "the per-minibatch rating sort is not ported (it comes with the "
-            "rating-sorted kernel, K9); the port's sweeps read each row's rating"
-        )
+    permutation, a multiple of ``mb`` rows): {"trip" [g, mb_b, arity],
+    "rat" [g, mb_b], "wts" [g, mb_b]}, and with ``rsort`` each minibatch
+    rating-sorted plus "tiler" [g, n_shards * n_tiles]."""
     mb = layout["mb"]
     trip, rat, wts = _gather_rows(ds_arrays, layout["n"], gperm)
     g = gperm.size // mb
-    return trip.reshape(g, mb, trip.shape[-1]), rat.reshape(g, mb), wts.reshape(g, mb)
+    arity = trip.shape[-1]
+    if not layout["rsort"]:
+        return {"trip": trip.reshape(g, mb, arity), "rat": rat.reshape(g, mb),
+                "wts": wts.reshape(g, mb)}
+    d_sh, ft, tile = layout["n_shards"], layout["n_tiles"], layout["tile"]
+    mb_b = layout["mb_b"]
+    out = {"trip": np.empty((g, mb_b, arity), np.int32),
+           "rat": np.empty((g, mb_b), np.int32),
+           "wts": np.empty((g, mb_b), np.float32),
+           "tiler": np.empty((g, d_sh * ft), np.int32)}
+    for m in range(g):
+        sl = slice(m * mb, (m + 1) * mb)
+        plan = rating_sort_pad(rat[sl], layout["n_ratings"], tile=tile, n_shards=d_sh,
+                               n_tiles=ft)
+        out["trip"][m], out["rat"][m], out["wts"][m] = apply_rating_sort(
+            plan, trip[sl], rat[sl], wts[sl], n_shards=d_sh)
+        out["tiler"][m] = plan.tile_r
+    return out
 
 
 # --- pool worker side --------------------------------------------------
@@ -109,8 +130,7 @@ def _worker_task(slot_spec, gperm: np.ndarray, m_lo: int, m_hi: int):
     """Prep the minibatch range [m_lo, m_hi) from its permutation slice and
     write it into the shared-memory slot (``slot_spec``: {array name:
     (shm name, shape, dtype str)} of the whole group)."""
-    out = _prep_minibatches(_W_DS, _W_LAYOUT, gperm)
-    for name, arr in zip(("trip", "rat", "wts"), out):
+    for name, arr in _prep_minibatches(_W_DS, _W_LAYOUT, gperm).items():
         shm_name, shape, dtype = slot_spec[name]
         dst = np.ndarray(shape, dtype=dtype, buffer=_attach_shm(shm_name).buf)
         dst[m_lo:m_hi] = arr
@@ -136,7 +156,10 @@ def _memmap_file(a: np.ndarray):
 
 class StreamPrep:
     """Prepares one dispatch group per :meth:`prep_group` call as host
-    arrays ``{"trip", "rat", "wts"}`` with a leading [group] axis.
+    arrays ``{"trip", "rat", "wts"}`` (and ``"tiler"`` with ``rsort``) with
+    a leading [group] axis.  ``layout`` holds seed, n, n_padded, mb, mb_b,
+    group, arity, rsort, n_ratings, tile, n_shards and n_tiles (the
+    reference's keys).
 
     Modes:
     - in-thread: gather on the calling thread (fresh arrays each call);
@@ -212,12 +235,14 @@ class StreamPrep:
 
         while len(self._slots) <= i:
             lay = self._layout
-            g, mb, arity = lay["group"], lay["mb"], lay["arity"]
+            g, mb_b, arity = lay["group"], lay["mb_b"], lay["arity"]
             spec = {
-                "trip": ((g, mb, arity), np.int32),
-                "rat": ((g, mb), np.int32),
-                "wts": ((g, mb), np.float32),
+                "trip": ((g, mb_b, arity), np.int32),
+                "rat": ((g, mb_b), np.int32),
+                "wts": ((g, mb_b), np.float32),
             }
+            if lay["rsort"]:
+                spec["tiler"] = ((g, lay["n_shards"] * lay["n_tiles"]), np.int32)
             slot = {}
             for name, (shape, dtype) in spec.items():
                 nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
@@ -232,8 +257,7 @@ class StreamPrep:
         mb, g = lay["mb"], lay["group"]
         gperm = self._perm(ep)[d * g * mb : (d + 1) * g * mb]
         if self._pool is None:
-            trip, rat, wts = _prep_minibatches(self._ds_arrays, lay, gperm)
-            return {"trip": trip, "rat": rat, "wts": wts}
+            return _prep_minibatches(self._ds_arrays, lay, gperm)
         slot = self._slot(self._toggle)
         self._toggle ^= 1
         spec = {name: (shm.name, view.shape, view.dtype.str)

@@ -11,9 +11,15 @@ sweeps between likelihood checks, records every ``likelihood_freq`` sweeps
 the L of the state *before* the chunk's last sweep (the reference's
 semantics), early-stops on |dL| < tol one check late (the trace is read
 after the next chunk is queued, so the read overlaps device work), and
-checkpoints.
+checkpoints.  A stats function that carries ``needs_rsort`` and ``tile_b``
+(``ops/em_rsorted.py::stats_fn``) gets the split rating-sorted into plan
+tiles and the tile table on the batch; stepwise EM sorts every minibatch.
 
 Stepwise EM (``cfg.train.minibatch > 0``): see :func:`_run_stepwise`.
+
+On CUDA every fit first runs the compute-integrity sentinel
+(``utils/integrity.py``), after the kernel build and before the timed
+window; its verdict is cached, so only a process's first fit pays for it.
 
 Not carried yet, and refused with ``NotImplementedError``: annealing,
 refine and split-merge rounds, the spectral init, and any mesh axis
@@ -55,12 +61,17 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
 )
 from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import apply_g1_order, make_g1_plan
 from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import make_scatter_plan
+from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (
+    apply_rating_sort,
+    rating_sort_pad,
+)
 from trigenicinteractionpredictor_tpu_torch.ops.stepwise import stepwise_group, zero_stats_like
 from trigenicinteractionpredictor_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
 from trigenicinteractionpredictor_tpu_torch.train.stream_prep import StreamPrep
+from trigenicinteractionpredictor_tpu_torch.utils.integrity import check_em_integrity
 
 
 @dataclass
@@ -124,11 +135,19 @@ def _check_ids(ds: TripletDataset) -> None:
 
 def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
     """The fit's device batch, with the host plans the chosen sweep needs
-    (the reference's ``train/trainer.py:395-455``): for bdg, rows in g1
-    order plus a 2-position scatter plan of the reordered rows; for the
-    other plan routes, a 3-position scatter plan.  Plans are built once per
-    fit, on the host."""
+    (the reference's ``train/trainer.py:358-455``): for the rating-sorted
+    sweep, rows stably sorted by rating and padded per class to whole plan
+    tiles, with the tile table; for bdg, rows in g1 order plus a 2-position
+    scatter plan of the reordered rows; for the other plan routes, a
+    3-position scatter plan.  Plans are built once per fit, on the host."""
     trip, rat, w = ds.triplets, ds.ratings, ds.weights
+    if getattr(stats_fn, "needs_rsort", False):
+        plan = rating_sort_pad(np.asarray(rat), ds.n_ratings, tile=stats_fn.tile_b)
+        trip, rat, w = apply_rating_sort(plan, np.asarray(trip), np.asarray(rat),
+                                         np.asarray(w))
+        log.log("backend", kernel=stats_fn.kernel_name, tile_b=stats_fn.tile_b,
+                padded_rows=int(plan.n_rows))
+        return make_batch(trip, rat, w, dev, tile_rating=plan.tile_r)
     if getattr(stats_fn, "needs_g1plan", False):
         g1 = make_g1_plan(trip, ds.n_genes, wb1=stats_fn.wb1)
         trip, rat, w = apply_g1_order(g1, trip, rat, w)
@@ -191,7 +210,7 @@ def fit(
     dispatch_info = {
         "kernel": getattr(stats_fn, "kernel_name", None)
         or getattr(stats_fn, "__name__", type(stats_fn).__name__),
-        "tile_b": 0,
+        "tile_b": int(getattr(stats_fn, "tile_b", 0) or 0),
         "bdr_group": 0,
         "row_chunk": int(getattr(stats_fn, "row_chunk", 0)),
         "precision": cfg.engine.precision,
@@ -205,6 +224,9 @@ def fit(
         _build.library()
         log.log("kernels_built", seconds=_build.build_info["seconds"],
                 cached=_build.build_info["cached"])
+    # Refuse to train on compute that disagrees with the host CPU (a no-op
+    # on the CPU; cached after a process's first fit).
+    check_em_integrity(dev, arity)
 
     def fresh_states() -> ModelState:
         return init_state(G, K, R, alpha=tcfg.init_alpha, arity=arity, samples=S,
@@ -354,7 +376,8 @@ def fit(
 
 class _GroupStager:
     """Host arrays of one dispatch group -> a device :class:`Batch` with a
-    leading [group] axis.
+    leading [group] axis: trip, rat, wts and, for rating-sorted minibatches,
+    tiler (their tile tables, the batch's ``tile_rating``).
 
     On CUDA the arrays are copied into one of two pinned host buffers, then
     to the device with ``non_blocking=True`` on a side stream; :meth:`put`
@@ -366,7 +389,7 @@ class _GroupStager:
     holds one group's rows; with prefetch on it holds at most two.
     """
 
-    _KEYS = ("trip", "rat", "wts")
+    _KEYS = ("trip", "rat", "wts", "tiler")  # in Batch field order
 
     def __init__(self, dev: torch.device, one_group: bool):
         self.dev = dev
@@ -380,8 +403,9 @@ class _GroupStager:
             self._side = torch.cuda.Stream(dev)
 
     def put(self, host: dict):
+        keys = [k for k in self._KEYS if k in host]
         if self.dev.type != "cuda":
-            return Batch(*(torch.from_numpy(np.array(host[k])) for k in self._KEYS)), None
+            return self._batch([torch.from_numpy(np.array(host[k])) for k in keys]), None
         i, self._turn = self._turn, self._turn ^ 1
         if self._copied[i] is not None:
             self._copied[i].synchronize()
@@ -389,20 +413,25 @@ class _GroupStager:
             self._pinned[i] = {
                 k: torch.empty(host[k].shape, dtype=torch.from_numpy(host[k]).dtype,
                                pin_memory=True)
-                for k in self._KEYS
+                for k in keys
             }
-        for k in self._KEYS:
+        for k in keys:
             self._pinned[i][k].numpy()[...] = host[k]
         if self.one_group and self._done is not None:
             self._done.synchronize()
         with torch.cuda.device(self.dev), torch.cuda.stream(self._side):
-            out = [self._pinned[i][k].to(self.dev, non_blocking=True) for k in self._KEYS]
+            out = [self._pinned[i][k].to(self.dev, non_blocking=True) for k in keys]
             event = torch.cuda.Event()
             event.record(self._side)
         for t in out:
             t.record_stream(self._main)  # freed only after the sweeps use it
         self._copied[i] = event
-        return Batch(*out), event
+        return self._batch(out), event
+
+    @staticmethod
+    def _batch(arrays) -> Batch:
+        trip, rat, wts, *tiler = arrays
+        return Batch(trip, rat, wts, tile_rating=tiler[0] if tiler else None)
 
     def ready(self, event) -> None:
         if event is not None:
@@ -461,24 +490,41 @@ def _run_stepwise(
     while n_mb % group:
         group -= 1  # the largest divisor <= the request keeps epochs uniform
     n_dispatch = n_mb // group
-    if getattr(stats_fn, "needs_rsort", False):
-        raise NotImplementedError(
-            "a stats function that needs rating-sorted minibatches is not ported "
-            "(the sort comes with the rating-sorted kernel, K9)"
-        )
+    # A rating-sorted sweep gets every minibatch sorted into one fixed
+    # padded layout: ft = mb / tile + R tiles (the worst case), so all
+    # minibatches of every epoch share one shape (the reference's
+    # trainer.py:947-974).  Order within a minibatch is free, and the class
+    # padding is weight 0.
+    rsort = getattr(stats_fn, "needs_rsort", False)
+    tile = ft = 0
+    mb_b = mb
+    if rsort:
+        tile = getattr(stats_fn, "tile_b", 0)
+        if not tile:
+            raise ValueError(
+                "stats_fn sets needs_rsort but carries no tile_b; the "
+                "stepwise rating-sort pads per-class to whole kernel tiles "
+                "and needs the tile size (attach fn.tile_b, or use "
+                "ops.em_rsorted.stats_fn)"
+            )
+        if mb % tile:
+            raise ValueError(f"tile_b={tile} does not divide the padded minibatch of "
+                             f"{mb} rows (minibatch={tcfg.minibatch})")
+        ft = mb // tile + ds.n_ratings
+        mb_b = ft * tile
     stream_prep = StreamPrep(
         ds,
-        layout={"seed": tcfg.seed, "n": n, "n_padded": n_padded, "mb": mb,
-                "group": group, "arity": ds.arity, "rsort": False,
-                "n_ratings": ds.n_ratings},
+        layout={"seed": tcfg.seed, "n": n, "n_padded": n_padded, "mb": mb, "mb_b": mb_b,
+                "group": group, "arity": ds.arity, "rsort": rsort,
+                "n_ratings": ds.n_ratings, "tile": tile, "n_shards": 1, "n_tiles": ft},
         workers=tcfg.stream_prep_workers,
     )
     layout = {"minibatch": mb, "n_minibatches": n_mb,
               "stream_groups": group if n_dispatch > 1 else 0,
-              "padded_rows": n_padded, "prep_workers": stream_prep.workers}
+              "padded_rows": n_padded, "prep_workers": stream_prep.workers,
+              "rsort_padded_mb": mb_b if rsort else 0}
     log.log("stepwise", kappa=tcfg.stepwise_kappa, t0=tcfg.stepwise_t0,
-            rsort_padded_mb=0, prefetch=tcfg.stream_prefetch,
-            pool_error=stream_prep.pool_error, **layout)
+            prefetch=tcfg.stream_prefetch, pool_error=stream_prep.pool_error, **layout)
 
     degrees = torch.as_tensor(ds.degrees(), device=dev)
     n_real = ds.n_real
