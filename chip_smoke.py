@@ -91,7 +91,8 @@ import time
 HEADLINE = dict(n=131_072, genes=1000, k=10, ratings=2, samples=10)
 LARGE_G_SWEEPS = 30   # the CLI large-G job
 ROUTE_SWEEPS = 30     # the bd-plan and large-G fits
-K3_GRID = (25, 50, 64)
+K3_GRID = (25, 50, 64, 72)
+K3_TOP_SWEEPS = 10    # the K = 72 fit through the CLI
 SWEEP_GRID = "5,10,25,50"
 SWEEP_SWEEPS = 20
 # Tolerances of kernel vs plain version.  Both run in float32 and sum in
@@ -980,8 +981,14 @@ def main() -> int:
         del st
     torch.cuda.empty_cache()
 
-    # 5. K2 against its plain version
-    k2_err, k2_ms, k2_plain_ms = 0.0, None, None
+    # 5. K2 against its plain version.  At G = 1000 (K = 10 and K = 50) also
+    # the yardstick, one einsum over the gathered rows giving D[b,s,r] (th3
+    # with p first, so no [S,B,K,K,K] intermediate forms), and two bounds:
+    # K2's own, for the interaction rating's slice of p alone (per row and
+    # restart sum_m th3 p is K^3 multiply-adds, then K^2 over l and K over k;
+    # bytes: theta, the slice, ids, out), and the bound of all R ratings,
+    # which is what the einsum and the plain scorer compute.
+    k2_err, k2 = 0.0, {}
     for g, n, k in ((G, N, K), (G, 32_768, 50), (100_000, 16_384, K)):
         dsg, _, _ = sample_synthetic_dataset(n, g, K, n_ratings=R, seed=2)
         st = (init if (g, k) == (G, K)
@@ -997,19 +1004,19 @@ def main() -> int:
         ms = _time_ms(lambda: score.ensemble_score(st.theta, st.p, trips), 20)
         plain = _time_ms(lambda: score.ensemble_score_reference(st.theta, st.p, trips), 5)
         print(f"[K2] G={g}, K={k}, rows={n}: {ms:.4f} ms, plain {plain:.4f} ms ({card})")
-        if (g, k) == (G, K):
-            # The yardstick: one einsum over the gathered rows, D[b,s,r]
-            # (th3 with p first, so no [S,B,K,K,K] intermediate forms).
+        if g == G:
             rows = [st.theta[:, trips[:, q].long(), :] for q in range(3)]
-            k2_library = _time_ms(lambda: torch.einsum(
+            library = _time_ms(lambda: torch.einsum(
                 "sbm,sklmr,sbl,sbk->bsr", rows[2], st.p, rows[1], rows[0]), 5)
-            # per row and restart, all R: sum_m th3 p (K^3 R multiply-adds),
-            # then over l (K^2 R) and k (K R); bytes: theta, p, ids, out
-            k2_bound = _bound(2.0 * n * S * R * (k**3 + k**2 + k),
-                              4.0 * S * g * k + 4.0 * S * k**3 * R + 12.0 * n + 4.0 * n)
-            k2_ms, k2_plain_ms = ms, plain
-            print(f"[K2] G={g}, K={k}, rows={n}: einsum {k2_library:.4f} ms, bound "
-                  f"{k2_bound[0]:.4f} ms ({k2_bound[1]}) ({card})")
+            flops = 2.0 * n * S * (k**3 + k**2 + k)
+            ids_out = 12.0 * n + 4.0 * n
+            own = _bound(flops, 4.0 * S * g * k + 4.0 * S * k**3 + ids_out)
+            all_r = _bound(R * flops, 4.0 * S * g * k + 4.0 * S * k**3 * R + ids_out)
+            k2[k] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                     "bound_ms": own[0], "bound_by": own[1], "bound_all_ratings_ms": all_r[0]}
+            print(f"[K2] G={g}, K={k}, rows={n}: einsum (all {R} ratings) {library:.4f} ms; "
+                  f"K2's own bound (one rating's slice) {own[0]:.4f} ms ({own[1]}), bound "
+                  f"of all {R} ratings {all_r[0]:.4f} ms ({all_r[1]}) ({card})")
             del rows
 
     # 6. the fit path, through the entry points a user calls
@@ -1100,6 +1107,16 @@ def main() -> int:
             k: load_checkpoint(os.path.join(out_dir, "units", f"fold0_k{k}.ckpt.npz"))["ll_trace"]
             for k in k_grid
         }
+        # 7b. K3's top K through the CLI, on the same data
+        top_dir = os.path.join(tmp, "fit72")
+        em_large_k.em_ensemble_stats.launches = 0
+        assert cli_main(["fit", "-f", data, "-k", str(em_large_k.MAX_K), "-s", str(S),
+                         "-i", str(K3_TOP_SWEEPS), "-n", "5", "-o", top_dir,
+                         "--device", "cuda"]) == 0
+        top_launches = em_large_k.em_ensemble_stats.launches
+        with open(os.path.join(top_dir, "events.jsonl")) as fh:
+            top_events = [json.loads(line) for line in fh]
+        top_trace = load_checkpoint(os.path.join(top_dir, "model.ckpt.npz"))["ll_trace"]
     print(f"[sweep] {json.dumps(sweep_report['summary'], sort_keys=True)}")
     print(f"[sweep] launches during the job and the K=50 serve: {sweep_launches}; "
           f"job wall {job_s:.2f} s")
@@ -1126,6 +1143,18 @@ def main() -> int:
     assert served50.shape == (N,) and np.isfinite(served50).all()
     assert served50.min() >= 0.0 and served50.max() <= 1.0
     print(f"[sweep] served {N} rows from the K=50 unit through {score.KERNEL_NAME}")
+    top_disp = next(e for e in top_events if e["event"] == "dispatch")
+    top_done = next(e for e in top_events if e["event"] == "fit_done")
+    top_drop = _max_drop(top_trace)
+    print(f"[K={em_large_k.MAX_K} fit] dispatch {json.dumps(top_disp, sort_keys=True)}; "
+          f"launches {top_launches}; L trace (best restart) {top_trace.max(axis=1).tolist()}, "
+          f"largest relative L drop {top_drop:.3e}; "
+          f"{top_done['sweeps'] / top_done['wall_s']:.3f} sweeps/s, "
+          f"{top_done['triplets_per_sec'] * S:.4e} restart-triplet updates/s (S={S}; {card})")
+    assert top_disp["kernel"] == em_large_k.KERNEL_NAME, top_disp
+    assert top_launches >= K3_TOP_SWEEPS, top_launches
+    assert top_trace.shape == (K3_TOP_SWEEPS // 5, S) and np.isfinite(top_trace).all()
+    assert top_drop <= LL_DROP_RTOL, top_drop
 
     # 8. the large-G fit
     large_g_kernels = large_g_phase(card, dev, cli_main)
@@ -1138,7 +1167,8 @@ def main() -> int:
 
     src = "trigenicinteractionpredictor_tpu_torch/csrc/"
     ref = "trigenicinteractionpredictor_tpu/ops/"
-    k3_50 = k3_times[50]
+    k3_50, k3_top = k3_times[50], k3_times[em_large_k.MAX_K]
+    k2_head = k2[K]
     kernels = [
         {
             "name": "em_sweep", "route": "cuda", "source": src + "em_sweep.cu",
@@ -1153,15 +1183,19 @@ def main() -> int:
             "replaces": ref + "pallas_score.py:120",
             "launches": k2_launches + sweep_launches["score"]
             + stepwise_counts[score.KERNEL_NAME],
-            "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-            "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_library,
+            "max_abs_err": k2_err, "ms": k2_head["ms"], "plain_ms": k2_head["plain_ms"],
+            "bound_ms": k2_head["bound_ms"], "bound_by": k2_head["bound_by"],
+            "library_ms": k2_head["library_ms"], "at_k50_rows32768": k2[50],
         },
         {
             "name": "em_sweep_large_k", "route": "cuda", "source": src + "em_sweep_large_k.cu",
             "replaces": ref + "pallas_em.py:180",
-            "launches": sweep_launches["em_sweep_large_k"], "max_abs_err": k3_err,
+            "launches": sweep_launches["em_sweep_large_k"] + top_launches,
+            "max_abs_err": k3_err,
             "ms": k3_50[0], "plain_ms": k3_50[1], "bound_ms": k3_50[2][0],
             "bound_by": k3_50[2][1], "library_ms": None,
+            "at_k72": {"ms": k3_top[0], "plain_ms": k3_top[1], "bound_ms": k3_top[2][0],
+                       "bound_by": k3_top[2][1]},
         },
         *large_g_kernels,
         k7_kernel,

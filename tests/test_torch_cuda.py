@@ -90,11 +90,12 @@ def test_k1_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize(
     "k,r,s",
     [(21, 2, 1), (21, 3, 3), (25, 2, 3), (25, 3, 1), (33, 2, 3), (33, 3, 1),
-     (50, 2, 3), (50, 3, 1), (64, 2, 1), (64, 3, 3)],
+     (50, 2, 3), (50, 3, 1), (64, 2, 1), (64, 3, 3), (65, 2, 1), (65, 3, 10),
+     (72, 2, 10), (72, 3, 1)],
 )
 def test_k3_matches_plain(dev, k, r, s):
-    """K3 across its range (K = 21..64, one and two indices per lane), R = 2
-    and 3, S = 1 and 3, on ragged rows padded with weight-0 rows plus rows
+    """K3 across its range (K = 21..72: one, two and three indices per lane),
+    R = 2 and 3, S = 1, 3 and 10, on ragged rows padded with weight-0 rows plus rows
     with an out-of-range gene id or rating, which the kernel must treat as
     inert: the plain version runs without them."""
     ds, st = _case(600, 70, k, r, s, seed=41, dev=dev, pad_to=1024)
@@ -135,7 +136,7 @@ def test_k3_refuses_what_it_does_not_take(dev):
     tb = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
     with pytest.raises(ValueError):
         em_large_k.em_ensemble_stats(st.theta, st.p, tb._replace(ratings=tb.ratings.long()))
-    for k in (20, 65):
+    for k in (20, 73):
         other = init_state(20, k, 2, samples=1, seed=2, device=dev)
         with pytest.raises(ValueError):
             em_large_k.em_ensemble_stats(other.theta, other.p, tb)
@@ -154,10 +155,51 @@ def test_k2_matches_plain(dev, g, n):
     np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=3e-5, atol=3e-6)
 
 
+@pytest.mark.parametrize("k,g,n,r", [(10, 1000, 3001, 2), (33, 70, 777, 3), (50, 60, 2000, 2),
+                                      (80, 60, 515, 2), (115, 40, 130, 2),
+                                      (10, 60_000, 3000, 2), (1, 30, 100, 2), (17, 50, 640, 2)])
+def test_k2_matches_plain_across_k(dev, k, g, n, r):
+    """K2 across its block shapes (4 x 2 warps at K = 10, 8 x 1 at K = 50, 6
+    and 5 warps at K = 115 and 17), one and many stages of m, ragged row
+    counts, and a G far past the TPU kernel's cap, within 1e-5 absolute of
+    the plain scorer; two launches give the same bits."""
+    ds, st = _case(n, g, k, r, 3, seed=19, dev=dev)
+    trips = torch.as_tensor(ds.triplets, dtype=torch.int32, device=dev)
+    launches = score.ensemble_score.launches
+    got = score.ensemble_score(st.theta, st.p, trips, r - 1)
+    again = score.ensemble_score(st.theta, st.p, trips, r - 1)
+    want = score.ensemble_score_reference(st.theta, st.p, trips, r - 1)
+    torch.cuda.synchronize()
+    assert score.ensemble_score.launches == launches + 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=0, atol=1e-5)
+
+
+def test_k2_refuses_what_it_does_not_take(dev):
+    ds, st = _case(256, 20, 4, 2, 2, seed=1, dev=dev)
+    trips = torch.as_tensor(ds.triplets, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # int64 ids
+        score.ensemble_score(st.theta, st.p, trips.long())
+    with pytest.raises(ValueError):  # no such rating
+        score.ensemble_score(st.theta, st.p, trips, 2)
+    big = init_state(20, 137, 2, samples=1, seed=2, device=dev)
+    with pytest.raises(ValueError):  # past the plan
+        score.ensemble_score(big.theta, big.p, trips)
+    bad = trips.clone()
+    bad[5, 1] = 20  # a gene id out of range scores NaN, the other rows as before
+    got = score.ensemble_score(st.theta, st.p, bad)
+    want = score.ensemble_score_reference(st.theta, st.p, trips)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[5]) and int(torch.isnan(got).sum()) == 1
+    keep = torch.arange(256, device=dev) != 5
+    np.testing.assert_allclose(got[keep].cpu(), want[keep].cpu(), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("k", [33, 50, 80])
 def test_k2_past_k32_matches_plain(dev, k):
-    """K2 stages p in chunks of k-slices past K = 32 (K = 50 is the sweep
-    job's largest unit), and serve_predict_interaction takes it there."""
+    """K2 streams the packed slice of p in stages past K = 32 as below it
+    (K = 50 is the sweep job's largest unit), and serve_predict_interaction
+    takes it there."""
     ds, st = _case(3000, 60, k, 2, 3, seed=17, dev=dev)
     launches = score.ensemble_score.launches
     got = serve_predict_interaction(st, ds.triplets, block_rows=2048)
@@ -266,9 +308,41 @@ def test_bd_plan_kernels_match_plain(dev, k, r, s, g, hub_pos):
                             em_bd.bd_em_ensemble_stats_reference(st.theta, st.p, tb, wb=64))
 
 
+@pytest.mark.parametrize("s,k,out_given", [(1, 10, False), (10, 10, True), (3, 7, False),
+                                           (3, 6, True), (50, 10, False), (40, 4, True)])
+def test_plan_scatter_widths(dev, s, k, out_given):
+    """K5b at S*K = 10 (K6's stage, 512-slot pieces), 100 (the table's
+    shape, 16-byte copies), 21 (4-byte copies), 18 (8-byte copies), 500 and
+    160 (several column tiles), with a hub gene that spans many pieces, a
+    ragged last piece, empty gene blocks, and ``out`` zeroed or holding
+    another position's share: within float32 rounding of a float64 plain
+    scatter, and the same bits from two launches."""
+    rng = np.random.default_rng(s * 100 + k)
+    g, n = 3000, 4001
+    trip = rng.integers(0, g, size=(n, 3)).astype(np.int32)
+    trip[: n // 2, 2] = 77
+    plan = em_large_g.make_scatter_plan(trip, g, wb=256)
+    streams = torch.as_tensor(rng.random((3, n, s * k)), dtype=torch.float32, device=dev)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (plan.perm, plan.lid, plan.offsets))
+    args += (256, g, k)
+    base = (torch.as_tensor(rng.random((s, g, k)), dtype=torch.float32, device=dev)
+            if out_given else None)
+    clone = lambda t: None if t is None else t.clone()  # noqa: E731
+    launches = em_bd.plan_scatter.launches
+    got = em_bd.plan_scatter(streams, *args, out=clone(base))
+    again = em_bd.plan_scatter(streams, *args, out=clone(base))
+    want = em_bd.plan_scatter_reference(
+        streams.double(), *args, out=None if base is None else base.double())
+    torch.cuda.synchronize()
+    assert em_bd.plan_scatter.launches == launches + 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=2e-6, atol=1e-5)
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-4
+
+
 def test_plan_scatter_splits_a_hub_run(dev):
-    """One gene holds 33,000 of 60,000 slots (129 pieces of 256) beside a
-    spread of others; the sum matches a float64 plain scatter."""
+    """One gene holds 33,000 of 60,000 slots (129 pieces of 256 at S*K = 20)
+    beside a spread of others; the sum matches a float64 plain scatter."""
     rng = np.random.default_rng(3)
     g, k, s = 3000, 5, 4
     trip = rng.integers(0, g, size=(20_000, 3)).astype(np.int32)
@@ -400,7 +474,7 @@ def test_k7_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):  # streams of another restart count
         em_hybrid.hybrid_stats(*(x[:, :25] for x in streams), tb.triplets, tb.ratings,
                                tb.weights, st.p, 20)
-    for k in (20, 65):
+    for k in (20, 73):
         other = init_state(20, k, 2, samples=1, seed=2, device=dev)
         with pytest.raises(ValueError):
             em_hybrid.em_ensemble_stats(other.theta, other.p, tb)

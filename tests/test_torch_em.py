@@ -150,6 +150,62 @@ def test_likelihood_never_decreases():
     assert np.all(np.diff(lls, axis=0) >= -1e-6 * np.abs(lls[:-1]))
 
 
+@pytest.mark.parametrize("arity,s", [(3, 1), (3, 3), (2, 2)])
+def test_simplex_invariants_hold_across_sweeps(arity, s):
+    """After every sweep theta rows and p cells stay non-negative and sum
+    to 1 (the reference's tests/test_invariants.py:28), for one state, an
+    ensemble and the digenic family."""
+    ds, st, _, tb = _case(600, 30, 4, 2, s, arity=arity, seed=0)
+    deg = torch.as_tensor(ds.degrees())
+    for _ in range(5):
+        st, _ = tem.em_step(st, tb, deg)
+        theta, p = st.numpy()
+        assert (theta >= 0).all() and (p >= 0).all()
+        np.testing.assert_allclose(theta.sum(axis=-1), 1.0, atol=1e-5)
+        np.testing.assert_allclose(p.sum(axis=-1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 3])
+def test_permutation_equivariance(s):
+    """Relabelling the genes permutes theta's rows and changes nothing
+    else (tests/test_invariants.py:61): new_id = pi[old_id] on the triplets,
+    theta and the degrees gives the same p, the same L and the permuted
+    theta after a sweep."""
+    ds, st, _, tb = _case(400, 20, 3, 2, s, seed=9)
+    deg = ds.degrees()
+    new, ll = tem.em_step(st, tb, torch.as_tensor(deg))
+    pi = np.random.default_rng(0).permutation(ds.n_genes)
+    inv = np.argsort(pi)  # theta_perm[new_id] = theta[old_id]
+    theta, p = st.numpy()
+    perm_new, perm_ll = tem.em_step(
+        state_from_numpy(theta[:, inv], p),
+        tem.make_batch(pi[ds.triplets], ds.ratings, ds.weights, "cpu"),
+        torch.as_tensor(deg[inv]),
+    )
+    np.testing.assert_allclose(perm_ll.numpy(), ll.numpy(), atol=1e-3)
+    np.testing.assert_allclose(perm_new.theta.numpy()[:, pi], new.theta.numpy(), atol=1e-5)
+    np.testing.assert_allclose(perm_new.p.numpy(), new.p.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("arity,samples", [(3, None), (3, 4), (2, 2)])
+def test_init_state_on_simplex_and_seed_determinism(arity, samples):
+    """The port's numpy-seeded init: the same seed gives the same state, a
+    different seed another; theta rows and p cells lie on the simplex
+    (tests/test_invariants.py:85); a restart stack's members differ."""
+    s1 = init_state(50, 8, 3, arity=arity, samples=samples, seed=5)
+    s2 = init_state(50, 8, 3, arity=arity, samples=samples, seed=5)
+    s3 = init_state(50, 8, 3, arity=arity, samples=samples, seed=6)
+    np.testing.assert_array_equal(s1.theta.numpy(), s2.theta.numpy())
+    np.testing.assert_array_equal(s1.p.numpy(), s2.p.numpy())
+    assert not np.allclose(s1.theta.numpy(), s3.theta.numpy())
+    assert (s1.theta.numpy() > 0).all() and (s1.p.numpy() > 0).all()
+    np.testing.assert_allclose(s1.theta.numpy().sum(axis=-1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(s1.p.numpy().sum(axis=-1), 1.0, atol=1e-5)
+    if samples:
+        assert s1.theta.shape == (samples, 50, 8)
+        assert not np.allclose(s1.theta[0].numpy(), s1.theta[1].numpy())
+
+
 @pytest.mark.parametrize("group", [0, 2, 1])
 def test_k1_plain_matches_bdr_kernel_interpret(group):
     """K1's plain version (the wrapper on a CPU tensor) against the JAX bdr

@@ -100,11 +100,14 @@ def test_k3_plain_matches_grouped_kernel():
     _assert_stats(_k3_plain(st, tb, 100), *fn(jnp.asarray(th), jnp.asarray(p), jb))
 
 
-def test_k3_plain_matches_single_restart_kernel():
-    """The reference's ``pallas-onehot-single`` route (K = 64), at K = 33."""
+@pytest.mark.parametrize("n,g,k,r", [(256, 24, 33, 3), (256, 1000, 65, 2), (300, 1000, 72, 2)])
+def test_k3_plain_matches_single_restart_kernel(n, g, k, r):
+    """The reference's ``pallas-onehot-single`` route: K = 64, here at K =
+    33, and K = 65 and 72 at G = 1000, the last K its dispatch gives the
+    kernel (the second on a ragged row count padded with weight-0 rows)."""
     from trigenicinteractionpredictor_tpu.ops.dispatch import _pallas_single_fn
 
-    ds, st, jb, tb = _case(256, 24, 33, 3, 1, seed=6)
+    ds, st, jb, tb = _case(n, g, k, r, 1, seed=6, pad_to=128)
     th, p = st.numpy()
     fn = _pallas_single_fn(128)
     assert fn.kernel_name == "pallas-onehot-single"
@@ -178,17 +181,40 @@ def test_plain_fit_receives_row_chunk(tmp_path, monkeypatch):
 
 
 def test_k3_sweep_plan_range():
-    """K3's plan exists for every K in 21..64 at R = 2 and 3 within one
-    block's shared memory and thread limit, and is None outside."""
-    for k in range(21, 65):
+    """K3's plan exists for every K in 21..72 at R = 2 and 3 within one
+    block's shared memory and thread limit, and is None outside;
+    ``sweep_plan`` is the one statement of the range (K7's wrapper and the
+    route read it)."""
+    assert (em_large_k.MIN_K, em_large_k.MAX_K) == (21, 72)
+    for k in range(21, 73):
         for r in (2, 3):
             plan = em_large_k.sweep_plan(k, r)
             assert plan is not None, (k, r)
-            assert max(plan.estep_smem, plan.cross_smem) <= 232_448
+            assert max(plan.estep_smem, plan.cross_smem) <= 232_448 - 1024
             assert plan.cross_threads % 32 == 0 and plan.cross_threads <= 1024
-    for k in (0, 10, 20, 65, 80):
+            assert plan.cross_threads >= r * ((k + 3) // 4) ** 2
+    # pass 1 at K = 72 (three indices per lane): the p slice buffer and the
+    # theta rows of a 64-row tile
+    assert em_large_k.sweep_plan(72, 2).estep_smem == 4 * (
+        (2 * 72 + 4) * 73 + 3 * 64 * 72 + 7 * 64)
+    for k in (0, 10, 20, 73, 80):
         assert em_large_k.sweep_plan(k, 2) is None
     assert em_large_k.sweep_plan(50, 4) is None
+
+
+@pytest.mark.parametrize("static_rows", [True, False])
+def test_hybrid_band_ends_at_k64(static_rows):
+    """HYBRID_BAND has no entry past K = 64, so raising K3's range to 72
+    moves no shape to K7: K = 65..72 is K3 at every S and G."""
+    assert max(em_large_k.MIN_K + len(band) - 1 for band in dispatch.HYBRID_BAND.values()) == 64
+    for s in (1, 2, 10):
+        for g in (0, 500, 1000, 2500, 4000, 8000, 100_000):
+            for k in range(65, 73):
+                assert not dispatch.in_hybrid_band(k, s, g, static_rows)
+                assert dispatch.route("cuda", 3, k, 2, s, n_genes=g,
+                                      static_rows=static_rows) == em_large_k.KERNEL_NAME
+            assert dispatch.route("cuda", 3, 73, 2, s, n_genes=g,
+                                  static_rows=static_rows) == "torch"
 
 
 @pytest.mark.parametrize(
@@ -199,8 +225,11 @@ def test_k3_sweep_plan_range():
         ("cuda", 3, 21, 2, em_large_k.KERNEL_NAME),
         ("cuda", 3, 50, 2, em_large_k.KERNEL_NAME),
         ("cuda", 3, 64, 3, em_large_k.KERNEL_NAME),
-        ("cuda", 3, 65, 2, "torch"),
+        ("cuda", 3, 65, 2, em_large_k.KERNEL_NAME),
+        ("cuda", 3, 72, 3, em_large_k.KERNEL_NAME),
+        ("cuda", 3, 73, 2, "torch"),
         ("cuda", 3, 80, 2, "torch"),
+        ("cpu", 3, 72, 2, "torch"),
         ("cuda", 2, 50, 2, "torch"),
         ("cpu", 3, 10, 2, "torch"),
         ("cpu", 3, 50, 2, "torch"),

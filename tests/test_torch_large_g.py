@@ -286,6 +286,87 @@ def test_wrong_plan_fails_on_the_cpu():
             fn(st.theta, st.p, tem.make_batch(trip, ratings, weights, "cpu"))
 
 
+def _piecewise_scatter(streams, plan, n_genes, k, piece, out):
+    """K5b's algorithm on the host, in the kernel's own order: the sorted
+    slots in pieces of ``piece``; a segment inside a piece is added into
+    ``out`` by that piece; one that began in an earlier piece leaves a head
+    and one that runs on a tail in ``part``, each piece its first and last
+    gene in ``edge``; then the fix-up gives each run-on segment to the
+    piece it began in, from ``edge`` alone."""
+    P, B, SK = streams.shape
+    vals = streams.reshape(P * B, SK)
+    L = len(plan.perm)
+    block = np.searchsorted(plan.offsets, np.arange(L), side="right") - 1
+    gene = block * plan.wb + plan.lid
+    n_pieces = -(-L // piece)
+    part = np.full((n_pieces, 2, SK), np.nan)
+    edge = np.zeros((n_pieces, 2), np.int64)
+    flat = out.transpose(1, 0, 2).reshape(n_genes, SK)  # [G, S*K]
+    for j in range(n_pieces):
+        a, e = j * piece, min(L, (j + 1) * piece)
+        prev = gene[a - 1] if a > 0 else -1
+        nxt = gene[e] if e < L else -1
+        edge[j] = gene[a], gene[e - 1]
+        start = a
+        for i in range(a + 1, e + 1):
+            if i < e and gene[i] == gene[start]:
+                continue
+            g, acc = gene[start], vals[plan.perm[start:i]].sum(0)
+            if start == a and prev == g:
+                part[j, 0] = acc
+            elif i == e and nxt == g:
+                part[j, 1] = acc
+            else:
+                flat[g] += acc
+            start = i
+    for j in range(n_pieces - 1):
+        g = edge[j, 1]
+        if edge[j + 1, 0] != g or (j > 0 and edge[j - 1, 1] == g):
+            continue
+        acc = part[j, 1].copy()
+        m = j + 1
+        while True:
+            acc += part[m, 0]
+            if m + 1 >= n_pieces or edge[m + 1, 0] != g:
+                break
+            m += 1
+        flat[g] += acc
+    return flat.reshape(n_genes, SK // k, k).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("s,k,vec,piece", [(1, 10, 2, 512), (10, 10, 4, 64), (3, 7, 1, 256),
+                                           (50, 10, 4, 64), (40, 4, 4, 64), (1, 1, 1, 1024),
+                                           (43, 3, 1, 64)])
+@pytest.mark.parametrize("positions", [None, (1, 2)])
+def test_scatter_launch_plan_and_piecewise_sum(s, k, vec, piece, positions):
+    """K5b's host side: ``scatter_plan`` gives the piece (the power of two
+    whose rows come to about 32 KB, within 32..1024), the copy width and the shared memory of the
+    kernel's layout at S*K = 10 (K6's stage), 100 (the table's shape), 21,
+    500, 160, 1 and 129; and the kernel's piecewise
+    algorithm, run on the host at that piece size, equals
+    ``plan_scatter_reference`` with a hub gene that spans many pieces, a
+    ragged last piece, empty gene blocks, and ``out`` holding another
+    position's share."""
+    sk = s * k
+    launch = em_bd.scatter_plan(sk)
+    width = min(sk, em_bd.COL_TILE)
+    assert launch == (piece, vec, 4 * (2 * piece * width + 7 * piece + 8))
+    assert sk % launch.vec == 0 and 3 * (launch.smem + 1024) <= 233_472
+    n, g, wb = 6001, 2000, 256
+    trip, _, _ = _rows(n, g, seed=sk, hub=True)
+    plan = em_large_g.make_scatter_plan(trip, g, wb=wb, positions=positions)
+    rng = np.random.default_rng(sk)
+    streams = rng.random((len(positions or (0, 1, 2)), n, sk))
+    base = rng.random((s, g, k))
+    hub_slots = int((trip[:, list(positions or (0, 1, 2))] == g // 3).sum())
+    assert hub_slots > 3 * piece
+    want = em_bd.plan_scatter_reference(
+        torch.as_tensor(streams), torch.as_tensor(plan.perm), torch.as_tensor(plan.lid),
+        torch.as_tensor(plan.offsets), wb, g, k, out=torch.as_tensor(base.copy()))
+    got = _piecewise_scatter(streams, plan, g, k, launch.piece, base.copy())
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-12, atol=1e-12)
+
+
 def test_row_chunks_of_a_planned_batch():
     """The plain sweep's row chunks drop the plans (they describe the
     whole batch) and keep its stats."""
@@ -321,7 +402,9 @@ def test_row_chunks_of_a_planned_batch():
         (20, 10, 100_000, 0, BDG),
         (20, 1, 100_000, 0, LARGE),
         (25, 10, 100_000, 104858, em_large_k.KERNEL_NAME),
-        (65, 10, 100_000, 104858, "torch"),
+        (65, 10, 100_000, 104858, em_large_k.KERNEL_NAME),  # K3 has no G cap
+        (72, 1, 100_000, 104858, em_large_k.KERNEL_NAME),
+        (73, 10, 100_000, 104858, "torch"),
     ],
 )
 def test_route(k, s, g, n_rows, expected):

@@ -96,15 +96,44 @@ def test_serve_matches_jax_serve():
 
 
 def test_score_kernel_range():
-    """K2 takes K = 1..115 with no cap on G or S: all of p[s] in one chunk
-    up to K = 26 (two blocks per SM), chunks of k-slices past it."""
-    for k in range(1, 116):
-        k_chunk, smem = score.score_plan(k)
-        assert 1 <= k_chunk <= k and smem <= 232_448
-        assert k_chunk == k or k > 26
-        if k <= 64:
-            assert smem <= 232_448 // 2
-    assert score.score_plan(116) is None and score.score_plan(0) is None
+    """K2 takes every K the earlier plan took (1..115) and on to 136, with
+    no cap on G or S: a block of wkl x wr warps (at most 8) whose (k,l)
+    chunks of 32 * wkl cover K^2 with the least padding, inside one block's
+    shared memory, and inside half of it up to K = 50 (two blocks per SM)."""
+    for k in range(1, 137):
+        plan = score.score_plan(k)
+        chunk = score.WARP_KL * plan.wkl
+        assert 1 <= plan.wkl * plan.wr <= score.MAX_WARPS and plan.wr == 8 // plan.wkl
+        assert plan.klp % chunk == 0 and k * k <= plan.klp < k * k + chunk
+        assert plan.smem <= 232_448 - 1024
+        if k <= 50:
+            assert 2 * (plan.smem + 1024) <= 233_472
+    assert score.score_plan(10)[:3] == (4, 2, 128)    # the default job
+    assert score.score_plan(50)[:3] == (8, 1, 2560)   # the K-sweep job's largest unit
+    assert score.score_plan(137) is None and score.score_plan(0) is None
+
+
+@pytest.mark.parametrize("k,r,interact", [(4, 2, 1), (10, 2, 1), (7, 3, 2), (33, 2, 0)])
+def test_k2_packed_product_matches_plain_scorer(k, r, interact):
+    """The kernel's algebra on its own host-side pieces: the packed slice
+    P[s, m, (k,l)] (``pack_p_reference``, zero-padded to the plan's chunked
+    width) multiplied by th3, then folded with th1 th2 over the flat (k,l)
+    axis, equals the plain scorer."""
+    ds, st, _ = _case(300, 30, k, r=r, s=2, seed=k)
+    plan = score.score_plan(k)
+    packed = score.pack_p_reference(st.p, interact, plan.klp)
+    assert packed.shape == (2, k, plan.klp) and packed.is_contiguous()
+    np.testing.assert_array_equal(packed[:, :, k * k:].numpy(), 0.0)
+    np.testing.assert_array_equal(packed[1, 2, 1 * k + 3].numpy(),
+                                  st.p[1, 1, 3, 2, interact].numpy())
+    idx = torch.as_tensor(ds.triplets).long()
+    th1, th2, th3 = (st.theta[:, idx[:, q], :] for q in range(3))
+    c = torch.matmul(th3, packed)                                   # [S, B, KLP]
+    w = (th1.unsqueeze(-1) * th2.unsqueeze(-2)).reshape(2, -1, k * k)
+    got = (c[..., : k * k] * w).sum(-1).mean(0)
+    want = score.ensemble_score_reference(
+        st.theta, st.p, torch.as_tensor(ds.triplets, dtype=torch.int32), interact)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=3e-5, atol=3e-6)
 
 
 @pytest.mark.parametrize(
@@ -113,6 +142,8 @@ def test_score_kernel_range():
         ("cuda", True, 3, 10, True, "cuda-score"),
         ("cuda", True, 3, 50, True, "cuda-score"),   # the K-sweep job's K = 50 unit
         ("cuda", True, 3, 64, True, "cuda-score"),
+        ("cuda", True, 3, 115, True, "cuda-score"),  # the earlier plan's top K
+        ("cuda", True, 3, 136, True, "cuda-score"),
         ("cuda", True, 3, 200, True, "torch"),       # past K2's plan: plain, by rule
         ("cuda", True, 3, 50, False, "torch"),
         ("cuda", False, 3, 50, True, "torch"),       # single state

@@ -13,8 +13,9 @@
 //   its E1/E2 selector matrices served only the TPU and are not carried
 //   over: theta_hat takes global atomics, as in K3.
 //
-// Supported shapes: 21 <= K <= 64 (the reference runs its hybrid kernel
-// only there, where p[s] does not fit one block), R <= 3, any G, S <=
+// Supported shapes: 21 <= K <= 72 (K3's plan; the reference's dispatch gives
+// its hybrid kernel K = 21..64, where p[s] does not fit one block, and so
+// does the port's), R <= 3, any G, S <=
 // 65535, any B >= 1 (no tile multiple, no pad rows).  Exact float32 in
 // both engine precision modes.
 //

@@ -1,4 +1,4 @@
-// The large-K sweep algebra (21 <= K <= 64) shared by K3
+// The large-K sweep algebra (21 <= K <= 72) shared by K3
 // (csrc/em_sweep_large_k.cu) and K7 (csrc/em_hybrid.cu).  The two kernels
 // differ only in where a row's theta values come from, which is the Rows
 // template parameter of both passes:
@@ -11,8 +11,8 @@
 // block owns one restart and a tile of 64 rows, sorted by rating in shared
 // memory, 8 rows per warp, taken in pairs.  It walks p[s] one k-slice
 // p[s,k,:,:,:] (K^2 R floats, 20 KB at K = 50, R = 2) at a time through
-// shared memory.  In the warp of a row, lane j (and j + 32 when K > 32)
-// plays index j:
+// shared memory.  In the warp of a row, lane j (and j + 32 when K > 32,
+// j + 64 when K > 64) plays index j:
 //     T[k,j] = sum_m th3[m] p[k,j,m,r]      U[k,j] = sum_l th2[l] p[k,l,j,r]
 //     A2[j] += th1[k] T[k,j]                A3[j] += th1[k] U[k,j]
 //     A1[k]  = sum_j th2[j] T[k,j]          (a warp butterfly sum)
@@ -145,7 +145,10 @@ __device__ __forceinline__ void pair_tu(
 }
 
 // Pass 1.  J = ceil(K / 32) indices per lane.  The tile's rows are sorted
-// by rating (stably), so the rows of a pair mostly share one p slice.
+// by rating (stably), so the rows of a pair mostly share one p slice.  At
+// J = 3 a thread holds 9 sums for each of its warp's 8 rows: 181 registers
+// of the 255 a thread of a 256-thread block may have, no spill (4 rows a
+// warp, 108 registers and two blocks an SM, ran 2% slower on the H100).
 // Shared memory (floats; xs = K|1, ts = K rounded up to 4):
 //   X     [(R K + 4) xs], rounded up to 4: slice k, p[s,k,l,m,r] at
 //         (r*K + l)*xs + m; zeroed once, pads and the 4 spare rows stay 0
@@ -461,6 +464,19 @@ int set_smem(Kernel kernel, int smem_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
+// Pass 1 for J indices per lane.
+template <int J, typename Rows>
+int launch_estep(Rows rows, const void* p, const void* trip, const void* rat,
+                 const void* w, void* theta_hat, void* ll, void* scale, int S,
+                 int B, int G, int K, int R, int estep_smem, cudaStream_t st) {
+  if (int err = set_smem(estep_kernel<J, Rows>, estep_smem)) return err;
+  estep_kernel<J, Rows><<<dim3((B + kTile - 1) / kTile, S), kWarps * 32, estep_smem, st>>>(
+      rows, (const float*)p, (const int*)trip, (const int*)rat,
+      (const float*)w, (float*)theta_hat, (float*)ll, (float*)scale, B, G, K,
+      R);
+  return (int)cudaGetLastError();
+}
+
 // Launch both passes on `stream`; returns cudaGetLastError() (0 on
 // success).  The caller zeroes theta_hat, p_hat and ll, allocates scale
 // [S, B], and sizes the shared memory and pass-2 threads from the host
@@ -471,22 +487,17 @@ int launch(Rows rows, const void* p, const void* trip, const void* rat,
            int S, int B, int G, int K, int R, int splits, int estep_smem,
            int cross_threads, int cross_smem, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid1((B + kTile - 1) / kTile, S);
   int err;
-  if (K > 32) {
-    if ((err = set_smem(estep_kernel<2, Rows>, estep_smem))) return err;
-    estep_kernel<2, Rows><<<grid1, kWarps * 32, estep_smem, st>>>(
-        rows, (const float*)p, (const int*)trip, (const int*)rat,
-        (const float*)w, (float*)theta_hat, (float*)ll, (float*)scale, B, G,
-        K, R);
-  } else {
-    if ((err = set_smem(estep_kernel<1, Rows>, estep_smem))) return err;
-    estep_kernel<1, Rows><<<grid1, kWarps * 32, estep_smem, st>>>(
-        rows, (const float*)p, (const int*)trip, (const int*)rat,
-        (const float*)w, (float*)theta_hat, (float*)ll, (float*)scale, B, G,
-        K, R);
-  }
-  if ((err = (int)cudaGetLastError())) return err;
+  if (K > 64)
+    err = launch_estep<3>(rows, p, trip, rat, w, theta_hat, ll, scale, S, B, G,
+                          K, R, estep_smem, st);
+  else if (K > 32)
+    err = launch_estep<2>(rows, p, trip, rat, w, theta_hat, ll, scale, S, B, G,
+                          K, R, estep_smem, st);
+  else
+    err = launch_estep<1>(rows, p, trip, rat, w, theta_hat, ll, scale, S, B, G,
+                          K, R, estep_smem, st);
+  if (err) return err;
   if ((err = set_smem(cross_kernel<Rows>, cross_smem))) return err;
   const int rows_per_split = (B + splits - 1) / splits;
   const dim3 grid2(K, S, splits);

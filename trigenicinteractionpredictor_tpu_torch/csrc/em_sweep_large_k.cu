@@ -1,4 +1,4 @@
-// K3: the whole-ensemble EM sweep for large K (21 <= K <= 64), hand-written
+// K3: the whole-ensemble EM sweep for large K (21 <= K <= 72), hand-written
 // for Hopper (sm_90a).
 //
 // Replaces: trigenicinteractionpredictor_tpu/ops/pallas_em.py,
@@ -10,7 +10,7 @@
 //   one-hot gather/scatter matmuls and its E1/E2 selector matrices served
 //   only the TPU's matrix unit and are not carried over.
 //
-// Supported shapes: 21 <= K <= 64 (the host plan in ops/em_large_k.py),
+// Supported shapes: 21 <= K <= 72 (the host plan in ops/em_large_k.py),
 // R <= 3, any G (theta rows are read from global memory), S <= 65535, B >= 1.
 //
 // Why not K1: K1 stages all of p[s] and its cross-stats in one block's

@@ -41,16 +41,17 @@ _SIGNATURES = {
     # th1, th2, th3, p, trip, rat, w, theta_hat, p_hat, ll, scale,
     # S, B, G, K, R, splits, estep_smem, cross_threads, cross_smem, stream
     "tip_em_hybrid": [_P] * 11 + [_I] * 9 + [_P],
-    # theta, p, trip, out, S, B, G, K, R, ir, k_chunk, threads, smem_bytes, stream
-    "tip_score": [_P] * 4 + [_I] * 9 + [_P],
+    # theta, p, trip, packed p, out, S, B, G, K, R, ir, KLP, wkl, wr, smem_bytes, stream
+    "tip_score": [_P] * 5 + [_I] * 10 + [_P],
     # theta, p, trip, rat, w, streams, p_hat, ll,
     # S, B, G, K, R, tile, rows_per_block, threads, smem_bytes, stream
     "tip_em_streams": [_P] * 8 + [_I] * 9 + [_P],
     # theta, p, trip, rat, w, g1_lid, g1_off, streams, theta_hat, p_hat, ll,
     # S, B, G, K, R, Q1, wb1, tile, piece_rows, threads, smem_bytes, stream
     "tip_em_bdg": [_P] * 11 + [_I] * 11 + [_P],
-    # vals, perm, lid, off, out, part, L, Q, wb, SK, K, G, piece, threads, stream
-    "tip_plan_scatter": [_P] * 6 + [_I] * 8 + [_P],
+    # vals, perm, lid, off, out, part, edge,
+    # L, Q, wb, SK, K, G, piece, vec, blocks, smem_bytes, stream
+    "tip_plan_scatter": [_P] * 7 + [_I] * 10 + [_P],
     # theta, p, trip, tile_r, w, theta_hat, p_hat, ll,
     # S, B, G, K, R, tile, tile_b, rows_per_block, threads, smem_bytes, stream
     "tip_em_rsorted": [_P] * 8 + [_I] * 10 + [_P],

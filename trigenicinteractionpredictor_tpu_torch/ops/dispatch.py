@@ -20,12 +20,15 @@ static rows):
     stepwise EM (``static_rows=False``): the plan routes bake one
     whole-dataset row order, and K1 reads each row's rating, so it needs
     none of the per-minibatch rating sort the reference's bdr does;
-- CUDA, arity 3, 21 <= K <= 64: K7 (``cuda-em-hybrid``,
+- CUDA, arity 3, 21 <= K <= 72 (K3's plan): K7 (``cuda-em-hybrid``,
   ``ops/em_hybrid.py``) where the reference runs its hybrid kernel
-  (:data:`HYBRID_BAND`), else K3 (``ops/em_large_k.py``), where the
-  reference runs its one-hot ensemble, grouped or single-restart kernel;
+  (:data:`HYBRID_BAND`, which has no entry past K = 64), else K3
+  (``ops/em_large_k.py``), where the reference runs its one-hot ensemble,
+  grouped or single-restart kernel.  The reference gives K = 65..72 to its
+  single-restart kernel only up to G = 1000 (its VMEM envelope); K3 has
+  no G cap, so the port gives it those K at any S and G;
 - everything else -- the CPU, the digenic family (which the reference also
-  leaves to plain code) and K > 64 (where the reference runs jnp at K = 80)
+  leaves to plain code) and K >= 73 (the reference runs jnp from K = 76)
   -- the plain PyTorch sweep, summed over row chunks.
 
 The reference splits wide ensembles into restart groups on the plan

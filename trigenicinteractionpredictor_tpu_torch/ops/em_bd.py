@@ -22,6 +22,8 @@ alone, in exact float32.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from trigenicinteractionpredictor_tpu_torch.ops import _build, em_bdr
@@ -35,8 +37,30 @@ KERNEL_NAME = "cuda-em-bd-plan"
 STREAMS_NAME = "cuda-em-streams"
 SCATTER_NAME = "cuda-plan-scatter"
 DEFAULT_WB = 512        # genes per plan block (the reference's _LARGE_G_WB)
-SCATTER_PIECE = 256     # sorted slots per scatter block: the split limit
-_SCATTER_THREADS = 128
+COL_TILE = 128          # stream columns per scatter block (kColTile in the source)
+_SCATTER_BLOCKS_PER_SM = 3  # kBlocksPerSm
+_SCATTER_PIECE_FLOATS = 8192  # stream floats a block keeps in flight (one piece's rows)
+
+
+class ScatterLaunch(NamedTuple):
+    piece: int  # sorted slots per piece: the split limit of a gene's run
+    vec: int    # floats per asynchronous copy (4, 2 or 1; divides S*K)
+    smem: int   # dynamic shared memory, bytes
+
+
+def scatter_plan(sk: int) -> ScatterLaunch:
+    """The launch plan of :func:`plan_scatter` at stream width ``sk`` =
+    S*K: the widest copy that keeps every row aligned; the piece, the
+    power of two whose rows (a tile of at most COL_TILE columns wide) come
+    to about 32 KB in flight a block, within 32..1024 slots (narrow streams
+    take long pieces, so that a piece's fixed work is spread over as many
+    bytes); and the bytes of the kernel's layout (two pieces of rows
+    [piece, tile width], gene ids [piece + 2], three pieces of slot ids
+    [piece] and local ids [piece + 2])."""
+    width = min(sk, COL_TILE)
+    vec = 4 if sk % 4 == 0 else 2 if sk % 2 == 0 else 1
+    piece = max(32, min(1024, 1 << ((_SCATTER_PIECE_FLOATS // width).bit_length() - 1)))
+    return ScatterLaunch(piece, vec, 4 * (2 * piece * width + 7 * piece + 8))
 
 
 def require_plan(batch: Batch, what: str) -> None:
@@ -150,15 +174,20 @@ def plan_scatter(streams, perm, lid, offsets, wb: int, n_genes: int, k: int,
     _build.require("theta_hat", out, torch.float32, (S, n_genes, k), dev)
     if L == 0:
         return out
-    n_pieces = -(-L // SCATTER_PIECE)
+    plan = scatter_plan(SK)
+    n_pieces = -(-L // plan.piece)
     part = torch.empty((n_pieces, 2, SK), dtype=torch.float32, device=dev)
-    threads = min(_SCATTER_THREADS, -(-SK // 32) * 32)
+    edge = torch.empty((n_pieces, 2), dtype=torch.int32, device=dev)
+    # Blocks that walk the pieces of each column tile: what the card holds.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, _SCATTER_BLOCKS_PER_SM * n_sm // -(-SK // COL_TILE))
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_plan_scatter(
             streams.data_ptr(), perm.data_ptr(), lid.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), part.data_ptr(), L, Q, wb, SK, k, n_genes,
-            SCATTER_PIECE, threads, torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), part.data_ptr(), edge.data_ptr(), L, Q, wb, SK, k, n_genes,
+            plan.piece, plan.vec, blocks, plan.smem,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, SCATTER_NAME)
     plan_scatter.launches += 1

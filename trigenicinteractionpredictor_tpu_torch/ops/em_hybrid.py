@@ -20,7 +20,7 @@ the kernel.
   thetas, ps, batch): gather, then :func:`hybrid_stats`.
 
 The kernel is K3's two passes with the row load taken from the streams
-(``csrc/em_large_k.cuh``), so it takes K3's range (21 <= K <= 64, R <= 3)
+(``csrc/em_large_k.cuh``), so it takes K3's range (21 <= K <= 72, R <= 3)
 and K3's launch plan; any G, S <= 65535, any B (no tile multiple, no pad
 rows).  Exact float32 in both engine precision modes.
 """

@@ -9,7 +9,7 @@ stacked thetas [S,G,K] and ps [S,K,K,K,R] in, the :class:`SweepStats` of
 one sweep out.  On a CPU tensor it runs the plain version,
 :func:`em_ensemble_stats_reference` (the row-chunked sweep of
 ``ops/em.py`` over the S axis); on a CUDA tensor it launches the kernel or
-raises.  The kernel takes 21 <= K <= 64, where p[s] no longer fits one
+raises.  The kernel takes 21 <= K <= 72, where p[s] no longer fits one
 block's shared memory (K1's limit): it runs as an E-step pass over
 k-slices of p and a cross-stat pass that owns slices of p_hat (see the
 source).  Exact float32 in both engine precision modes.
@@ -29,7 +29,7 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
 )
 
 KERNEL_NAME = "cuda-em-sweep-large-k"
-MIN_K, MAX_K = 21, 64
+MIN_K, MAX_K = 21, 72
 MAX_RATINGS = 3
 # Rows per pass-1 block and per pass-2 staging step (kTile, kTile2 in the
 # source).

@@ -52,7 +52,7 @@ def serve_route(device_type: str, ensemble: bool, arity: int, k: int,
                 fast: bool = True) -> str:
     """The scorer :func:`serve_predict_interaction` runs: the K2 kernel's
     name for restart-stacked trigenic states on CUDA with ``fast`` at a K
-    inside K2's plan (K <= 115), else ``"torch"`` (the plain scorer).  A
+    inside K2's plan (K <= 136), else ``"torch"`` (the plain scorer).  A
     shape rule decided before any launch, as the reference's
     ``_fit_score_tile`` rule; never a fallback after a failed launch."""
     from trigenicinteractionpredictor_tpu_torch.ops import score
