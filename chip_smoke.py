@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                headline shape (N = 131,072 rows, G = 1000, K = 10, R = 2,
                S = 10), with both times from CUDA events;
 4. K3       -- the large-K EM sweep kernel against its plain version at the
-               headline N, G, R, S for K = 25, 50 and 64, with both times;
+               headline N, G, R, S for K = 25, 50, 64 and 72, with both times,
+               and at K = 50 and 72 its two passes' device times apart
+               (``torch.profiler``);
 5. K2       -- the scoring kernel against its plain version at the headline
                shape, at K = 50, and at G = 100,000 with 16,384 rows;
 6. the fit path -- ``fit`` (S = 10, K = 10, 50 sweeps, likelihood every
@@ -896,6 +898,7 @@ def main() -> int:
     from trigenicinteractionpredictor_tpu_torch.eval import evaluate
     from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
     from trigenicinteractionpredictor_tpu_torch.cli import main as cli_main
+    from trigenicinteractionpredictor_tpu_torch.ab_kernels import pass_split
     from trigenicinteractionpredictor_tpu_torch.ops import _build, em_bdr, em_large_k, score
     from trigenicinteractionpredictor_tpu_torch.ops.dispatch import plain_stats
     from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
@@ -975,9 +978,16 @@ def main() -> int:
             lambda: em_large_k.em_ensemble_stats_reference(st.theta, st.p, batch), 3
         )
         bound = _bound(_sweep_flops(N, k, S), _sweep_bytes(N, G, k, R, S))
-        k3_times[k] = (ms, plain, bound)
+        split = {}
+        if k in (50, em_large_k.MAX_K):
+            split = pass_split(lambda: em_large_k.em_ensemble_stats(st.theta, st.p, batch), 2)
+        k3_times[k] = (ms, plain, bound, split)
         print(f"[K3] K={k}: {ms:.4f} ms/sweep-stats, plain {plain:.4f} ms, bound "
               f"{bound[0]:.4f} ms ({bound[1]}) (N={N}, G={G}, R={R}, S={S}; {card})")
+        if split:
+            print(f"[K3] K={k}: pass 1 {split['pass1']:.4f} ms, pass 2 {split['pass2']:.4f} ms, "
+                  f"the rest of the call (pack, rating order) {split['other']:.4f} ms of "
+                  f"device time per call (torch.profiler; {card})")
         del st
     torch.cuda.empty_cache()
 
@@ -1194,8 +1204,10 @@ def main() -> int:
             "max_abs_err": k3_err,
             "ms": k3_50[0], "plain_ms": k3_50[1], "bound_ms": k3_50[2][0],
             "bound_by": k3_50[2][1], "library_ms": None,
+            "pass1_ms": k3_50[3]["pass1"], "pass2_ms": k3_50[3]["pass2"],
             "at_k72": {"ms": k3_top[0], "plain_ms": k3_top[1], "bound_ms": k3_top[2][0],
-                       "bound_by": k3_top[2][1]},
+                       "bound_by": k3_top[2][1], "pass1_ms": k3_top[3]["pass1"],
+                       "pass2_ms": k3_top[3]["pass2"]},
         },
         *large_g_kernels,
         k7_kernel,

@@ -592,3 +592,99 @@ def test_integrity_sentinel_passes_on_the_card(dev, tmp_path, monkeypatch):
     integrity.clear_cache()
     assert integrity.check_em_integrity(dev, 3)  # from the disk cache
     assert em_bdr.em_ensemble_stats.launches == launches
+
+
+LAYOUTS = ("one_rating", "absent", "short", "cross", "hub")
+
+
+def _layout_rows(layout, n, g, k, r, seed):
+    """Rows that stress the kernels' rating order and atomics:
+    ``one_rating`` every row of rating R - 1; ``absent`` (R = 3) no row of
+    rating 1; ``short`` 5 rows of rating 1 (a segment shorter than a tile);
+    ``cross`` 70 rows of rating 1 (a segment crossing a 64-row tile);
+    ``hub`` gene 7 at position 1 in 80% of the rows and at position 3 in
+    30% (the theta_hat atomics pile onto one gene row).  n is no multiple
+    of any row tile."""
+    ds, _, _ = sample_synthetic_dataset(n, g, k, n_ratings=r, seed=seed)
+    trip, rat, w = ds.triplets.copy(), ds.ratings.copy(), ds.weights.copy()
+    rng = np.random.default_rng(seed)
+    if layout == "one_rating":
+        rat[:] = r - 1
+    elif layout == "absent":
+        rat = np.where(rat == 1, 0, rat).astype(np.int32)
+    elif layout in ("short", "cross"):
+        rat[:] = 0
+        rat[rng.choice(n, 5 if layout == "short" else 70, replace=False)] = 1
+    elif layout == "hub":
+        trip[rng.random(n) < 0.8, 0] = 7
+        trip[rng.random(n) < 0.3, 2] = 7
+    return trip, rat, w
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("k", [1, 10])
+def test_k1_on_rating_layouts(dev, layout, k):
+    """K1 (K = 1 included) on one rating only, R = 3 with one rating absent,
+    short and tile-crossing rating segments, and a hub gene, on B = 1001 (300
+    for the hub) rows; at the file's tolerances (a hub's theta_hat also
+    rtol 1e-6, as _assert_close_stats)."""
+    r = 3 if layout == "absent" else 2
+    trip, rat, w = _layout_rows(layout, 300 if layout == "hub" else 1001, 70, k, r, seed=81)
+    st = init_state(70, k, r, samples=3, seed=82, device=dev)
+    tb = make_batch(trip, rat, w, dev)
+    launches = em_bdr.em_ensemble_stats.launches
+    out = em_bdr.em_ensemble_stats(st.theta, st.p, tb)
+    ref = em_bdr.em_ensemble_stats_reference(st.theta, st.p, tb)
+    torch.cuda.synchronize()
+    assert em_bdr.em_ensemble_stats.launches == launches + 1
+    _assert_close_stats(out, ref)
+
+
+@pytest.mark.parametrize(
+    "k,layout",
+    [(21, "one_rating"), (31, "absent"), (33, "short"), (63, "cross"), (65, "hub"),
+     (72, "one_rating"), (72, "absent"), (50, "cross"), (21, "hub"), (33, "cross")],
+)
+def test_k3_and_k7_on_rating_layouts(dev, k, layout):
+    """K3 and K7 (its streams) at K = 21, 31, 33, 63, 65 and 72 (odd K, and
+    each side of a change in column groups and gather width) on the rating
+    layouts of the K1 test, against the plain sweep."""
+    r = 3 if layout == "absent" else 2
+    trip, rat, w = _layout_rows(layout, 300 if layout == "hub" else 1001, 70, k, r, seed=83)
+    st = init_state(70, k, r, samples=2, seed=84, device=dev)
+    tb = make_batch(trip, rat, w, dev)
+    ref = em_large_k.em_ensemble_stats_reference(st.theta, st.p, tb)
+    k3 = em_large_k.em_ensemble_stats.launches
+    k7 = em_hybrid.hybrid_stats.launches
+    out3 = em_large_k.em_ensemble_stats(st.theta, st.p, tb)
+    out7 = em_hybrid.hybrid_stats(*em_hybrid.gather_rows(st.theta, tb.triplets), tb.triplets,
+                                  tb.ratings, tb.weights, st.p, 70)
+    torch.cuda.synchronize()
+    assert em_large_k.em_ensemble_stats.launches == k3 + 1
+    assert em_hybrid.hybrid_stats.launches == k7 + 1
+    _assert_close_stats(out3, ref)
+    _assert_close_stats(out7, ref)
+
+
+@pytest.mark.parametrize("layout", ["one_rating", "absent", "cross", "hub"])
+def test_k4_and_k5a_on_rating_layouts(dev, layout):
+    """K4 (g1-ordered rows) and K5a on the rating layouts, K = 10, S = 3,
+    G = 3000, against their plain versions."""
+    r = 3 if layout == "absent" else 2
+    g, k = 3000, 10
+    trip, rat, w = _layout_rows(layout, 300 if layout == "hub" else 1001, g, k, r, seed=85)
+    st = init_state(g, k, r, samples=3, seed=86, device=dev)
+    got = em_bd.em_streams(st.theta, st.p, make_batch(trip, rat, w, dev))
+    want = em_bd.em_streams_reference(st.theta, st.p, make_batch(trip, rat, w, dev))
+    wb1 = em_bdg.bdg_plan(k, r)[1]
+    g1 = em_bdg.make_g1_plan(trip, g, wb1=wb1)
+    tb = make_batch(*em_bdg.apply_g1_order(g1, trip, rat, w), dev, g1=g1)
+    got4 = em_bdg.bdg_estep(st.theta, st.p, tb, wb1)
+    want4 = em_bdg.bdg_estep_reference(st.theta, st.p, tb, wb1)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu(), want[0].cpu(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got4[0].cpu(), want4[0].cpu(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got4[1].cpu(), want4[1].cpu(), rtol=1e-6, atol=1e-4)
+    for a, b in ((got, want), (got4, want4)):
+        np.testing.assert_allclose(a[-2].cpu(), b[-2].cpu(), rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(a[-1].cpu(), b[-1].cpu(), rtol=1e-5)

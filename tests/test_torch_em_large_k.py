@@ -181,25 +181,89 @@ def test_plain_fit_receives_row_chunk(tmp_path, monkeypatch):
 
 
 def test_k3_sweep_plan_range():
-    """K3's plan exists for every K in 21..72 at R = 2 and 3 within one
-    block's shared memory and thread limit, and is None outside;
+    """K3's plan exists for every K in 21..72 at R = 1, 2 and 3 within one
+    block's shared memory and thread limits, and is None outside;
     ``sweep_plan`` is the one statement of the range (K7's wrapper and the
     route read it)."""
     assert (em_large_k.MIN_K, em_large_k.MAX_K) == (21, 72)
     for k in range(21, 73):
-        for r in (2, 3):
+        for r in (1, 2, 3):
             plan = em_large_k.sweep_plan(k, r)
             assert plan is not None, (k, r)
             assert max(plan.estep_smem, plan.cross_smem) <= 232_448 - 1024
-            assert plan.cross_threads % 32 == 0 and plan.cross_threads <= 1024
-            assert plan.cross_threads >= r * ((k + 3) // 4) ** 2
-    # pass 1 at K = 72 (three indices per lane): the p slice buffer and the
-    # theta rows of a 64-row tile
+            # pass 1: 16 row groups x K/4 column groups, two blocks an SM
+            assert plan.estep_threads == 16 * plan.kc // 4 <= 288
+            assert 2 * (plan.estep_smem + 1024) <= 233_472
+            # pass 2: one k, 4 l and 8 m a thread, whole k's a block
+            per_k = -(-k // 4) * -(-k // 8)
+            assert plan.cross_threads == plan.nk * per_k <= 384
+            assert plan.cross_threads >= 128
+            assert plan.vec in (1, 2, 4) and k % plan.vec == 0
+    # pass 1 at K = 72: two stages of packed p, the theta tiles of 64 rows,
+    # the A1 partial sums, weights, scales, gene ids and rows
     assert em_large_k.sweep_plan(72, 2).estep_smem == 4 * (
-        (2 * 72 + 4) * 73 + 3 * 64 * 72 + 7 * 64)
+        2 * 72 * 72 + 3 * 72 * 68 + 2 * 18 * 64 + 2 * 64 + 4 * 64)
     for k in (0, 10, 20, 73, 80):
         assert em_large_k.sweep_plan(k, 2) is None
     assert em_large_k.sweep_plan(50, 4) is None
+
+
+@pytest.mark.parametrize("k", [21, 25, 31, 33, 50, 63, 64, 65, 72])
+@pytest.mark.parametrize("r", [2, 3])
+def test_k3_plan_mirrors_the_smem_layout(k, r):
+    """The plan's bytes are the source's carve, written out: pass 1 (kRows1
+    = 64 rows, row stride 68) holds two stages of K x KC packed p, three
+    [KC][68] theta tiles, two [KC/4][64] partial sums, weights, scales and
+    four int vectors of 64; pass 2 (kRows2 = 64 rows a stage) two buffers
+    of th1, th2 [64][LP] and th3 [64][MP], three stages of int4 row info
+    and of scales.  Neither grows with R: every block reads one rating."""
+    plan = em_large_k.sweep_plan(k, r)
+    kc = 4 * -(-k // 4)
+    lp, mp = 4 * -(-k // 4), 8 * -(-k // 8)
+    assert plan.kc == kc
+    assert plan.estep_smem == 4 * (2 * k * kc + 3 * kc * 68 + 2 * (kc // 4) * 64
+                                   + 2 * 64 + 4 * 64)
+    assert plan.cross_smem == 4 * (2 * 64 * (2 * lp + mp) + 3 * 64 * 4 + 3 * 64)
+    assert plan.vec == (4 if k % 4 == 0 else 2 if k % 2 == 0 else 1)
+    assert plan == em_large_k.sweep_plan(k, 1)
+
+
+@pytest.mark.parametrize("n,r,seed", [(1, 2, 0), (257, 2, 1), (1000, 3, 2), (64, 3, 3),
+                                      (500, 1, 4)])
+def test_rating_order_is_a_stable_permutation(n, r, seed):
+    """``rating_order`` sorts rows by rating, stably, with rows of an
+    out-of-range rating (negative or >= R) last, and ``off`` bounds each
+    rating's run."""
+    rng = np.random.default_rng(seed)
+    ratings = rng.integers(-1, r + 2, size=n).astype(np.int32)
+    order, off = em_large_k.rating_order(torch.as_tensor(ratings), r)
+    order, off = order.numpy(), off.numpy()
+    assert order.dtype == np.int32 and off.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(n))
+    key = np.where((ratings >= 0) & (ratings < r), ratings, r)
+    np.testing.assert_array_equal(order, np.argsort(key, kind="stable"))
+    assert off[0] == 0 and off.shape == (r + 1,)
+    for q in range(r):
+        run = order[off[q]:off[q + 1]]
+        assert (ratings[run] == q).all() and (np.diff(run) > 0).all()
+    assert (key[order[off[r]:]] == r).all()
+
+
+@pytest.mark.parametrize("k,r,s", [(21, 3, 2), (25, 2, 3), (33, 2, 1)])
+def test_plain_sweep_of_rating_ordered_rows(k, r, s):
+    """The plain sweep of a batch reordered by ``rating_order`` equals the
+    plain sweep of the batch: the same float32 sums in another order (rows
+    of ~300, so rtol 1e-5 with atol 1e-6 on theta_hat and p_hat, loglik
+    rtol 1e-5)."""
+    ds, st, _, tb = _case(300, 40, k, r, s, seed=17)
+    order, _ = em_large_k.rating_order(tb.ratings, r)
+    idx = order.long()
+    ordered = tem.Batch(tb.triplets[idx], tb.ratings[idx], tb.weights[idx])
+    a = em_large_k.em_ensemble_stats_reference(st.theta, st.p, tb)
+    b = em_large_k.em_ensemble_stats_reference(st.theta, st.p, ordered)
+    np.testing.assert_allclose(b.theta_hat.numpy(), a.theta_hat.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(b.p_hat.numpy(), a.p_hat.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(b.loglik.numpy(), a.loglik.numpy(), rtol=1e-5)
 
 
 @pytest.mark.parametrize("static_rows", [True, False])

@@ -330,3 +330,83 @@ def test_port_imports_no_jax():
     assert len(sources) >= 31
     offenders = [p for p in sources if pattern.search(open(p).read())]
     assert not offenders, offenders
+
+
+def _tile_bytes(k, r, tile):
+    """``csrc/em_tile.cuh`` carve, written out: p[s] and its cross-stats as
+    [R][K][K4][K4], T/U [K^2][NS], theta [3][K4][NS], A [3][K][NS], weights
+    and scales [NS], weights by row [tile]; ints: gene ids [3][tile],
+    ratings, slots [tile] each, and 8 of segments and counts."""
+    k4 = 4 * -(-k // 4)
+    ns = 4 * -(-tile // 4) + 4 * (r - 1)
+    floats = 2 * r * k * k4 * k4 + k * k * ns + 3 * k4 * ns + 3 * k * ns + 2 * ns + tile
+    return 4 * (floats + 5 * tile + 8)
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 10, 13, 17, 19, 20])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_tile_plans_mirror_the_smem_layout(k, r):
+    """K1's, K4's and K9's host plans keep their K and R ranges and size
+    the new tile buffers byte for byte: K1 takes K = 1..20 at R <= 3 with
+    the largest tile that fits, K4 adds two [wb1, K] blocks, K9 carves one
+    rating and reaches K = 28."""
+    from trigenicinteractionpredictor_tpu_torch.ops import em_bdg, em_bdr, em_rsorted
+
+    limit = 232_448 - 1024
+    for tile in em_bdr.TILES:
+        assert em_bdr.tile_smem_bytes(k, r, tile) == _tile_bytes(k, r, tile)
+    tile, smem = em_bdr.sweep_plan(k, r)
+    assert smem == _tile_bytes(k, r, tile) <= limit
+    assert all(_tile_bytes(k, r, t) > limit for t in em_bdr.TILES if t > tile)
+    tile4, wb1 = em_bdg.bdg_plan(k, r)
+    assert em_bdg._smem_bytes(k, r, tile4, wb1) == _tile_bytes(k, r, tile4) + 8 * wb1 * k
+    assert em_bdg._smem_bytes(k, r, tile4, wb1) <= limit
+    assert em_bdg._tile(k, r, wb1) == tile4
+    tile9, smem9 = em_rsorted.sweep_plan(k, 512)
+    assert smem9 == _tile_bytes(k, 1, tile9) <= limit
+
+
+def test_tile_plan_ranges():
+    from trigenicinteractionpredictor_tpu_torch.ops import em_bdr, em_rsorted
+
+    assert em_bdr.sweep_plan(21, 1) is None and em_bdr.sweep_plan(0, 2) is None
+    assert em_bdr.sweep_plan(20, 3) == (8, _tile_bytes(20, 3, 8))
+    assert em_bdr.sweep_plan(10, 2) == (64, _tile_bytes(10, 2, 64))
+    assert em_rsorted.sweep_plan(28, 512) == (8, _tile_bytes(28, 1, 8))
+    assert em_rsorted.sweep_plan(29, 512) is None
+
+
+def _tile_slots(rr, n_ratings):
+    """The slots ``tip::sort_rows`` gives a tile's rows: rating r's rows, in
+    row order, from seg[r], each rating's run starting at a multiple of 4."""
+    rr = np.asarray(rr)
+    cnt = np.bincount(rr, minlength=n_ratings)
+    seg = np.concatenate([[0], np.cumsum(-(-cnt // 4) * 4)])
+    slots = np.empty(len(rr), np.int64)
+    for row, r in enumerate(rr):
+        slots[row] = seg[r] + np.count_nonzero(rr[:row] == r)
+    return slots, seg
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32, 64])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_in_block_rating_order_fits_its_slots(tile, r):
+    """Every tile of up to ``tile`` rows gets distinct slots in rating order
+    (stable), every quad of slots holds one rating, and the slots stay
+    within NS = tile rounded up to 4 plus 4 (R - 1) -- the carve's bound --
+    for random tiles and for the worst case (one row of each rating but
+    the last)."""
+    rng = np.random.default_rng(tile * 10 + r)
+    ns = 4 * -(-tile // 4) + 4 * (r - 1)
+    cases = [rng.integers(0, r, size=rng.integers(1, tile + 1)) for _ in range(50)]
+    cases.append(np.array(list(range(r - 1)) + [r - 1] * (tile - r + 1)))
+    for rr in cases:
+        slots, seg = _tile_slots(rr, r)
+        assert len(set(slots.tolist())) == len(rr) and seg[-1] <= ns
+        for q in range(r):
+            mine = slots[rr == q]
+            assert (np.diff(mine) == 1).all() and (len(mine) == 0 or mine[0] == seg[q])
+            assert seg[q] % 4 == 0
+        quads = {}
+        for s_, q in zip(slots, rr):
+            assert quads.setdefault(s_ // 4, q) == q

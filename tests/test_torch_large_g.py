@@ -444,7 +444,9 @@ def test_bdg_plan_covers_k1_range():
         for r in (2, 3):
             tile, wb1 = em_bdg.bdg_plan(k, r)
             assert em_bdg._smem_bytes(k, r, tile, wb1) <= 232_448
-    assert em_bdg.bdg_plan(10, 2) == (64, 128)
+    # the widest gene block that keeps the tile buffers' three blocks an SM
+    # (70,304 bytes of tile buffers at K = 10, R = 2: wb1 = 128 would cost one)
+    assert em_bdg.bdg_plan(10, 2) == (64, 64)
     assert em_bdg.bdg_plan(21, 2) is None
 
 

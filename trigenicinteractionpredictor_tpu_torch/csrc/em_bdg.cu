@@ -18,7 +18,10 @@
 // narrows the gene block wb1 and the row tile until the buffers below fit
 // shared memory); any G; S <= 65535; any B >= 1.
 //
-// What bounds it on the H100: the E-step algebra is K1's.  Against
+// What bounds it on the H100: the E-step algebra is K1's (register-tiled
+// products over each tile's rows sorted by rating inside the block,
+// csrc/em_tile.cuh; 80 registers, 3 blocks per SM, the gene block's two
+// [wb1, K] buffers on top of the tile buffers).  Against
 // em_streams.cu it reads position 1's theta as one contiguous [wb1, K]
 // block per gene block visited (instead of a scattered row per row) and
 // keeps position 1 out of the streams and out of the scatter (2 of 3
@@ -28,7 +31,8 @@
 // Design: grid (pieces of piece_rows consecutive rows, S).  A block walks
 // the gene blocks its piece overlaps (g1 CSR offsets); for each it stages
 // theta[s, block rows] and a zeroed accumulator [wb1, K] in shared memory,
-// runs the tile algebra of em_tile.cuh over the rows of that gene block,
+// runs the tile algebra of em_tile.cuh over the rows of that gene block
+// (a tile cut short by the block's end costs only its rows' slot quads),
 // adds position 1's marginals into the accumulator with shared atomics and
 // flushes the nonzero entries into theta_hat with one global atomic each
 // (a gene block split across pieces, e.g. by a hub gene, is summed by
@@ -49,7 +53,7 @@ __device__ inline int block_of(const int* __restrict__ off, int Q, int i) {
   return lo;
 }
 
-__global__ void em_bdg_kernel(
+__global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
     const float* __restrict__ theta,   // [S, G, K]
     const float* __restrict__ p,       // [S, K, K, K, R]
     const int* __restrict__ trip,      // [B, 3], g1 plan order
@@ -115,12 +119,13 @@ __global__ void em_bdg_kernel(
         t.wv[i] = valid ? w[b] : 0.f;
       }
       __syncthreads();
+      tip::sort_rows(t, n);
 
-      for (int i = tid; i < 3 * K * n; i += nt) {
-        const int row = i % n, j = i / n;  // j = pos*K + k
-        const int k = j % K, pos = j / K;
-        const int g = t.gene[pos * RS + row];
-        t.th[j * RS + row] = pos == 0 ? th_blk[g * K + k] : th_s[(size_t)g * K + k];
+      tip::Walk3 it(tid, nt, K);
+      for (int i = tid; i < 3 * K * n; i += nt, it.next()) {
+        const int g = t.gene[it.pos * RS + it.row];
+        tip::th_at(t, it.pos, it.k, t.slot[it.row]) =
+            it.pos == 0 ? th_blk[g * K + it.k] : th_s[(size_t)g * K + it.k];
       }
       __syncthreads();
 

@@ -19,30 +19,35 @@
 // 65535, any B >= 1 (no tile multiple, no pad rows).  Exact float32 in
 // both engine precision modes.
 //
-// Design: K3's two passes (csrc/em_large_k.cuh) with the row load taken
-// from the streams (StreamRows) instead of through theta: pass 1 stages a
-// 64-row tile's three stream rows per restart with reads along k, pass 2
-// re-reads th1[b, s*K + k], th2 and th3 rows of its split.  The algebra,
-// the scatter and the bound are K3's: ~3 K^3 multiply-adds per row and
-// restart, shared-memory bound in pass 1.  The streams (3 B S K floats,
-// 79 MB at B = 131,072, S = 2, K = 25) are read once by pass 1 and once
-// per k-slice by pass 2, mostly from the 50 MB L2.
+// Design: K3's two passes (csrc/em_large_k.cuh: rows in a stable rating
+// order, register-tiled products, p staged by cp.async from a packed copy)
+// with the row load taken from the streams (StreamRows) instead of through
+// theta: pass 1 reads a 64-row tile's three stream rows per restart through
+// the order, pass 2 copies its rows' th1, th2 and th3 stream rows by
+// cp.async again for each chunk of k's.  The algebra, the scatter and the
+// bound are K3's: ~3 K^3 multiply-adds per row and restart, float32 (96
+// registers in pass 1, 130 in pass 2 by ptxas).  The
+// streams (3 B S K floats, 79 MB at B = 131,072, S = 2, K = 25) are read
+// once by pass 1 and once per k chunk by pass 2, mostly from the 50 MB L2.
 
 #include "em_large_k.cuh"
 
-// Launch both passes on `stream`; returns cudaGetLastError() (0 on
-// success).  The caller zeroes theta_hat, p_hat and ll, allocates scale
-// [S, B], and sizes the shared memory and pass-2 threads from the host
-// plan (ops/em_large_k.py sweep_plan, shared with K3).
+// Launch the pack and both passes on `stream`; returns cudaGetLastError()
+// (0 on success).  The caller zeroes theta_hat, p_hat and ll, allocates the
+// buffers pk, scale and rowinfo, computes the rating order and its segments
+// (order, off), and sizes the blocks and shared memory from the host plan
+// (ops/em_large_k.py sweep_plan, shared with K3).
 extern "C" int tip_em_hybrid(
     const void* th1, const void* th2, const void* th3, const void* p,
-    const void* trip, const void* rat, const void* w, void* theta_hat,
-    void* p_hat, void* ll, void* scale, int S, int B, int G, int K, int R,
-    int splits, int estep_smem, int cross_threads, int cross_smem,
-    void* stream) {
+    const void* trip, const void* w, const void* order, const void* off,
+    void* pk, void* theta_hat, void* p_hat, void* ll, void* scale,
+    void* rowinfo, int S, int B, int G, int K, int R, int KC,
+    int estep_threads, int estep_smem, int nk, int splits, int vec,
+    int cross_threads, int cross_smem, void* stream) {
   const large_k::StreamRows rows{(const float*)th1, (const float*)th2,
                                  (const float*)th3, S};
-  return large_k::launch(rows, p, trip, rat, w, theta_hat, p_hat, ll, scale,
-                         S, B, G, K, R, splits, estep_smem, cross_threads,
-                         cross_smem, stream);
+  return large_k::launch(rows, p, trip, w, order, off, pk, theta_hat, p_hat,
+                         ll, scale, rowinfo, S, B, G, K, R, KC, estep_threads,
+                         estep_smem, nk, splits, vec, cross_threads, cross_smem,
+                         stream);
 }

@@ -22,10 +22,12 @@
 // HBM bandwidth but shared-memory traffic of the K^3 loops and the L2
 // atomics of the scatter.  What the sort buys on the card is room: a block
 // holds one rating's slice of p[s] and of its cross-stats instead of all R,
-// which takes K from 20 (K1) to 28.
+// which takes K from 20 (K1) to 28 (206,368 bytes of shared memory there
+// with 8-row tiles).
 //
-// Design: K1's (em_sweep.cu) on the tile algebra of em_tile.cuh, carved
-// with R = 1 and every row's rating 0:
+// Design: K1's (em_sweep.cu) on the register-tiled algebra of em_tile.cuh
+// (80 registers, 3 blocks per SM), carved with R = 1 and every row's
+// rating 0, so its in-block sort has one segment and no pad slots:
 // - grid (row blocks, S): a block owns one restart s and a contiguous run
 //   of rows, walked in kernel tiles of `tile` rows; a kernel tile lies in
 //   one plan tile, so it has one rating, read from the table;
@@ -45,28 +47,30 @@
 
 namespace {
 
-// Stage rating r's slice of p[s] as p_sm[m][(k,l)] and zero the cross-
-// stats (carve with R = 1: cell i = (k*K + l)*K + m).  The caller syncs.
+// Stage rating r's slice of p[s] (carve with R = 1: cell i = (k*K4 + l)*K4
+// + m, 0 past K), zero the cross-stats and the theta buffer.  The caller
+// syncs.
 __device__ inline void stage_rating(const tip::Tile& t, const float* __restrict__ p_s,
                                     int r, int R) {
-  const int K = t.K, K2 = K * K, K3 = K2 * K;
-  for (int i = threadIdx.x; i < K3; i += blockDim.x) {
-    const int m = i % K, kl = i / K;
-    t.p_sm[m * K2 + kl] = p_s[(size_t)i * R + r];
+  const int K = t.K, K4 = t.K4;
+  for (int i = threadIdx.x; i < K * K4 * K4; i += blockDim.x) {
+    const int m = i % K4, l = (i / K4) % K4, k = i / (K4 * K4);
+    t.p_sm[i] = (l < K && m < K) ? p_s[((size_t)(k * K + l) * K + m) * R + r] : 0.f;
     t.cross[i] = 0.f;
   }
+  for (int i = threadIdx.x; i < 3 * K4 * t.NS; i += blockDim.x) t.th[i] = 0.f;
 }
 
 // Flush the staged rating's p-stats into p_hat[s][..., r] as p * cross.
 // The caller syncs before the buffers are restaged.
 __device__ inline void flush_rating(const tip::Tile& t, float* __restrict__ ph_s,
                                     int r, int R) {
-  const int K = t.K, K2 = K * K, K3 = K2 * K;
-  for (int i = threadIdx.x; i < K3; i += blockDim.x) {
+  const int K = t.K, K4 = t.K4;
+  for (int i = threadIdx.x; i < K * K4 * K4; i += blockDim.x) {
     const float v = t.cross[i];
     if (v != 0.f) {
-      const int m = i % K, kl = i / K;
-      atomicAdd(&ph_s[(size_t)i * R + r], t.p_sm[m * K2 + kl] * v);
+      const int m = i % K4, l = (i / K4) % K4, k = i / (K4 * K4);
+      atomicAdd(&ph_s[((size_t)(k * K + l) * K + m) * R + r], t.p_sm[i] * v);
     }
   }
 }
@@ -98,15 +102,15 @@ __device__ inline void load_rows(const tip::Tile& t, const int* __restrict__ tri
     t.wv[i] = valid ? w[b] : 0.f;
   }
   __syncthreads();
-  for (int i = tid; i < 3 * K * n; i += nt) {
-    const int row = i % n, j = i / n;  // j = pos*K + k
-    const int k = j % K, pos = j / K;
-    t.th[j * RS + row] = th_s[(size_t)t.gene[pos * RS + row] * K + k];
-  }
+  tip::sort_rows(t, n);
+  tip::Walk3 it(tid, nt, K);
+  for (int i = tid; i < 3 * K * n; i += nt, it.next())
+    tip::th_at(t, it.pos, it.k, t.slot[it.row]) =
+        th_s[(size_t)t.gene[it.pos * RS + it.row] * K + it.k];
   __syncthreads();
 }
 
-__global__ void em_rsorted_kernel(
+__global__ void __launch_bounds__(tip::kThreads, 3) em_rsorted_kernel(
     const float* __restrict__ theta,  // [S, G, K]
     const float* __restrict__ p,      // [S, K, K, K, R]
     const int* __restrict__ trip,     // [B, 3], rating-sorted
@@ -149,14 +153,12 @@ __global__ void em_rsorted_kernel(
     load_rows(t, trip, w, th_s, row0, n, G);
     ll_acc += tip::estep(t, n);
 
-    // theta_hat[gene_pos] += th_pos * A_pos * scale
-    for (int i = tid; i < 3 * K * n; i += nt) {
-      const int row = i % n, j = i / n;
-      if (t.wv[row] != 0.f) {
-        const int k = j % K, pos = j / K;
-        atomicAdd(&thh_s[(size_t)t.gene[pos * RS + row] * K + k],
-                  tip::marginal(t, pos, k, row));
-      }
+    // theta_hat[gene_pos] += th_pos * A_pos * scale, k fastest
+    tip::Walk3 it(tid, nt, K);
+    for (int i = tid; i < 3 * K * n; i += nt, it.next()) {
+      if (t.wv[it.row] != 0.f)
+        atomicAdd(&thh_s[(size_t)t.gene[it.pos * RS + it.row] * K + it.k],
+                  tip::marginal(t, it.pos, it.k, it.row));
     }
     tip::cross_acc(t, n);
   }

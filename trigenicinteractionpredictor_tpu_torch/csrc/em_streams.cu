@@ -20,7 +20,9 @@
 // sweep_plan admits); any G; S <= 65535; any B >= 1.
 //
 // What bounds it on the H100: the E-step algebra is K1's (~3 K^3
-// multiply-adds per row and restart from shared memory); instead of K1's
+// multiply-adds per row and restart, register-tiled over the tile's rows in
+// rating order from shared memory: csrc/em_tile.cuh; 80 registers, 3
+// blocks per SM, 70,304 bytes at K = 10, R = 2); instead of K1's
 // 3 K scattered atomics into a G-sized theta_hat per row and restart it
 // writes 3 K floats of stream (40 B runs at K = 10: 157 MB a sweep at
 // B = 131,072, S = 10), which the scatter then reads back.
@@ -33,7 +35,7 @@
 
 namespace {
 
-__global__ void em_streams_kernel(
+__global__ void __launch_bounds__(tip::kThreads, 3) em_streams_kernel(
     const float* __restrict__ theta,  // [S, G, K]
     const float* __restrict__ p,      // [S, K, K, K, R]
     const int* __restrict__ trip,     // [B, 3]

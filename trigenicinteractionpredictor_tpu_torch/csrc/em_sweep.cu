@@ -18,33 +18,31 @@
 // multiply-adds (T, A3 and the p cross-stats) against K^3 R values of
 // p[s], plus 3 K scattered atomic adds into theta_hat.  At K = 10 that is
 // far below the card's float32 rate and its HBM bandwidth: theta (400 KB
-// at G = 1000, S = 10) and p stay L2-resident, so the limits are shared-
-// memory traffic of the K^3 loops and the L2 atomics of the theta_hat
-// scatter.
+// at G = 1000, S = 10) and p stay L2-resident, so the limits are the
+// shared-memory reads of the K^3 products and the L2 atomics of the
+// theta_hat scatter (39 M a sweep at the headline shape).
 //
 // Design:
 // - grid (row blocks, S): a block owns one restart s and a contiguous run
 //   of rows, walked in tiles of `tile` rows;
-// - p[s] is staged once in shared memory, laid out [r][m][(k,l)] so the
-//   row-parallel loops read it as a broadcast;
-// - per-row vectors live in shared memory as [component][row] with a row
-//   stride of tile + 1, so row-parallel loops are conflict-free and the
-//   cell-parallel cross-stat loop reads distinct banks;
-// - T, A1, A2, A3, D and scale are computed with one thread per
-//   (row, component); the p cross-stats with one thread per (r, k, l, m)
-//   cell looping over the tile's rows (no shared-memory atomics), held in
-//   shared memory for the block's whole run and flushed once per block as
-//   p * cross with atomicAdd (this tile algebra is em_tile.cuh, which the
-//   large-G kernels share);
+// - p[s] is staged once in shared memory and the p cross-stats stay there
+//   for the block's whole run, flushed once per block as p * cross with
+//   atomicAdd;
+// - per tile the rows are sorted by rating inside the block and T, U (for
+//   A3) and the cross-stats are register-tiled products over each rating's
+//   rows (csrc/em_tile.cuh, which K4, K5a and K9 share: its header gives
+//   the layout; 80 registers by ptxas, 3 blocks per SM, 70,304 bytes of
+//   shared memory at K = 10, R = 2);
 // - theta_hat gets one atomicAdd per (row, position, k) with nonzero
-//   weight; loglik is reduced per block, then one atomicAdd per block.
+//   weight, k fastest, so a warp's atomics fall on a few gene rows; loglik
+//   is reduced per block, then one atomicAdd per block.
 // Weight-0 rows are inert: their scale is 0 and they add nothing.
 
 #include "em_tile.cuh"
 
 namespace {
 
-__global__ void em_sweep_kernel(
+__global__ void __launch_bounds__(tip::kThreads, 3) em_sweep_kernel(
     const float* __restrict__ theta,  // [S, G, K]
     const float* __restrict__ p,      // [S, K, K, K, R]
     const int* __restrict__ trip,     // [B, 3]
@@ -75,14 +73,13 @@ __global__ void em_sweep_kernel(
     tip::load_rows(t, trip, rat, w, th_s, row0, n, G);
     ll_acc += tip::estep(t, n);
 
-    // theta_hat[gene_pos] += th_pos * A_pos * scale
-    for (int i = tid; i < 3 * K * n; i += nt) {
-      const int row = i % n, j = i / n;
-      if (t.wv[row] != 0.f) {
-        const int k = j % K, pos = j / K;
-        atomicAdd(&thh_s[(size_t)t.gene[pos * RS + row] * K + k],
-                  tip::marginal(t, pos, k, row));
-      }
+    // theta_hat[gene_pos] += th_pos * A_pos * scale, k fastest: a warp's
+    // atomics fall on a few gene rows
+    tip::Walk3 it(tid, nt, K);
+    for (int i = tid; i < 3 * K * n; i += nt, it.next()) {
+      if (t.wv[it.row] != 0.f)
+        atomicAdd(&thh_s[(size_t)t.gene[it.pos * RS + it.row] * K + it.k],
+                  tip::marginal(t, it.pos, it.k, it.row));
     }
     tip::cross_acc(t, n);
   }

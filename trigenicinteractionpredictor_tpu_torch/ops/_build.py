@@ -35,12 +35,12 @@ _SIGNATURES = {
     # theta, p, trip, rat, w, theta_hat, p_hat, ll,
     # S, B, G, K, R, tile, rows_per_block, threads, smem_bytes, stream
     "tip_em_sweep": [_P] * 8 + [_I] * 9 + [_P],
-    # theta, p, trip, rat, w, theta_hat, p_hat, ll, scale,
-    # S, B, G, K, R, splits, estep_smem, cross_threads, cross_smem, stream
-    "tip_em_sweep_large_k": [_P] * 9 + [_I] * 9 + [_P],
-    # th1, th2, th3, p, trip, rat, w, theta_hat, p_hat, ll, scale,
-    # S, B, G, K, R, splits, estep_smem, cross_threads, cross_smem, stream
-    "tip_em_hybrid": [_P] * 11 + [_I] * 9 + [_P],
+    # theta, p, trip, w, order, off, pk, theta_hat, p_hat, ll, scale, rowinfo,
+    # S, B, G, K, R, KC, estep_threads, estep_smem, nk, splits, vec,
+    # cross_threads, cross_smem, stream
+    "tip_em_sweep_large_k": [_P] * 12 + [_I] * 13 + [_P],
+    # th1, th2, th3, then as tip_em_sweep_large_k from p
+    "tip_em_hybrid": [_P] * 14 + [_I] * 13 + [_P],
     # theta, p, trip, packed p, out, S, B, G, K, R, ir, KLP, wkl, wr, smem_bytes, stream
     "tip_score": [_P] * 5 + [_I] * 10 + [_P],
     # theta, p, trip, rat, w, streams, p_hat, ll,

@@ -37,7 +37,7 @@ WB1_CHOICES = (512, 256, 128, 64, 32)  # gene-block widths, widest first
 DEFAULT_WB1 = WB1_CHOICES[0]
 _SM_SMEM = 233_472       # shared memory of one H100 SM, bytes
 _BLOCK_RESERVED = 1024   # of it, reserved per resident block
-_MAX_RESIDENT = 3        # blocks per SM at 256 threads of 72 registers (ptxas)
+_MAX_RESIDENT = 3        # blocks per SM: the kernel's __launch_bounds__(256, 3)
 _BLOCKS_PER_SM = 8
 
 
@@ -100,7 +100,8 @@ def bdg_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
     fits, then the widest gene block that costs no resident block per SM
     against the tile buffers alone (else the widest that fits); None
     outside K1's range.  Measured on the H100 at K = 10, R = 2 (PERF.md):
-    wb1 = 128 keeps three blocks per SM and ran 5-22% faster than 512."""
+    a block width that keeps three blocks per SM (then 128) ran 5-22%
+    faster than 512; with the register-tiled algebra's buffers it is 64."""
     if em_bdr.sweep_plan(k, n_ratings) is None:
         return None
     for tile in em_bdr.TILES:

@@ -33,11 +33,15 @@ TILES = (64, 32, 16, 8)
 
 
 def tile_smem_bytes(k: int, n_ratings: int, tile: int) -> int:
-    """Shared memory of the tile buffers (``csrc/em_tile.cuh`` carve):
-    p[s] and its cross-stats, then per-row vectors of stride tile + 1."""
-    rs = tile + 1
-    floats = 2 * n_ratings * k**3 + k * k * rs + 6 * k * rs + 2 * rs
-    return 4 * (floats + 4 * rs)
+    """Shared memory of the tile buffers (``csrc/em_tile.cuh`` carve): p[s]
+    and its cross-stats with l and m padded to K4 = K rounded up to 4, then
+    per-slot vectors over NS = tile rounded up to 4 plus 4 (R - 1) slots
+    (each rating's rows start a quad), then per-row vectors of the tile."""
+    k4 = -(-k // 4) * 4
+    ns = -(-tile // 4) * 4 + 4 * (n_ratings - 1)
+    floats = 2 * n_ratings * k * k4 * k4 + k * k * ns + 3 * k4 * ns + 3 * k * ns + 2 * ns + tile
+    ints = 5 * tile + 8
+    return 4 * (floats + ints)
 
 
 def sweep_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:

@@ -102,17 +102,18 @@ def hybrid_stats(th1, th2, th3, triplets, ratings, weights, ps, n_genes: int) ->
     ll = torch.zeros(S, dtype=torch.float32, device=dev)
     if B == 0:
         return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
-    scale = torch.empty((S, B), dtype=torch.float32, device=dev)
-    # Split the rows of pass 2 until there are ~4 blocks per SM (as K3).
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-B // em_large_k.CROSS_ROWS), -(-4 * n_sm // (K * S))))
+    order, off = em_large_k.rating_order(ratings, R)
+    pk, scale, rowinfo = em_large_k.launch_buffers(S, B, K, R, plan, dev)
+    splits = em_large_k.cross_splits(K, S, B, R, plan, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_em_hybrid(
             th1.data_ptr(), th2.data_ptr(), th3.data_ptr(), ps.data_ptr(),
-            triplets.data_ptr(), ratings.data_ptr(), weights.data_ptr(),
-            theta_hat.data_ptr(), p_hat.data_ptr(), ll.data_ptr(), scale.data_ptr(),
-            S, B, G, K, R, splits, plan.estep_smem, plan.cross_threads,
+            triplets.data_ptr(), weights.data_ptr(), order.data_ptr(), off.data_ptr(),
+            pk.data_ptr(), theta_hat.data_ptr(), p_hat.data_ptr(), ll.data_ptr(),
+            scale.data_ptr(), rowinfo.data_ptr(), S, B, G, K, R, plan.kc,
+            plan.estep_threads, plan.estep_smem, plan.nk, splits, plan.vec,
+            plan.cross_threads,
             plan.cross_smem, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, KERNEL_NAME)

@@ -12,7 +12,9 @@ one sweep out.  On a CPU tensor it runs the plain version,
 raises.  The kernel takes 21 <= K <= 72, where p[s] no longer fits one
 block's shared memory (K1's limit): it runs as an E-step pass over
 k-slices of p and a cross-stat pass that owns slices of p_hat (see the
-source).  Exact float32 in both engine precision modes.
+source), both over the rows in rating order (:func:`rating_order`, an
+index array the kernel reads rows through).  Exact float32 in both engine
+precision modes.
 """
 
 from __future__ import annotations
@@ -31,12 +33,14 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
 KERNEL_NAME = "cuda-em-sweep-large-k"
 MIN_K, MAX_K = 21, 72
 MAX_RATINGS = 3
-# Rows per pass-1 block and per pass-2 staging step (kTile, kTile2 in the
-# source).
+# Pass 1: rows per block and the row stride of its theta tiles (kRows1,
+# kTS in the source); pass 2: rows per stage (kRows2) and the block's
+# thread cap (kMaxThreads2).
 ESTEP_ROWS = 64
+ESTEP_TS = ESTEP_ROWS + 4
 CROSS_ROWS = 64
-# 227 KB of opt-in shared memory per block on sm_90, less the kernel's
-# static buffer and a margin.
+CROSS_MAX_THREADS = 384
+# 227 KB of opt-in shared memory per block on sm_90, less a margin.
 _SMEM_LIMIT = 232_448 - 1024
 # The plain version's rows per chunk: the reference's EngineConfig default
 # (jnp_row_chunk).
@@ -44,7 +48,11 @@ DEFAULT_ROW_CHUNK = 16384
 
 
 class Plan(NamedTuple):
+    kc: int             # K rounded up to 4: the packed p's row length
+    estep_threads: int  # pass-1 threads per block (16 x KC/4)
     estep_smem: int     # pass-1 dynamic shared memory, bytes
+    nk: int             # pass-2 k's per block
+    vec: int            # pass-2 floats per gather copy (4, 2 or 1)
     cross_threads: int  # pass-2 threads per block
     cross_smem: int     # pass-2 dynamic shared memory, bytes
 
@@ -52,18 +60,61 @@ class Plan(NamedTuple):
 def sweep_plan(k: int, n_ratings: int) -> Optional[Plan]:
     """The launch plan at this (K, R), or None outside the kernel's range
     (MIN_K..MAX_K, R <= MAX_RATINGS).  Mirrors the shared-memory layouts
-    in the source."""
+    in the source.  Pass 2 copies rows in vec floats, the widest that K
+    allows, and takes, among blocks of at least 4 warps, the k's per block
+    that cost least over all k chunks: each chunk costs its warps plus its
+    rows' gathers, which on the H100 at K = 50 in 4-byte copies cost about
+    as much as a 6-warp block's compute (so 6 K / 50 / vec warps)."""
     if not (MIN_K <= k <= MAX_K and 1 <= n_ratings <= MAX_RATINGS):
         return None
-    xs, ts = k | 1, -(-k // 4) * 4
-    x_floats = -(-(n_ratings * k + 4) * xs // 4) * 4
-    estep_smem = 4 * (x_floats + 3 * ESTEP_ROWS * ts + 7 * ESTEP_ROWS)
-    lq = (k + 3) // 4
-    cross_threads = -(-n_ratings * lq * lq // 32) * 32
-    cross_smem = 4 * (2 * CROSS_ROWS * 4 * lq + 5 * CROSS_ROWS)
-    if max(estep_smem, cross_smem) > _SMEM_LIMIT or cross_threads > 1024:
+    kc = -(-k // 4) * 4
+    ncg = kc // 4
+    estep_smem = 4 * (2 * k * kc + 3 * kc * ESTEP_TS + 2 * ncg * ESTEP_ROWS
+                      + 2 * ESTEP_ROWS + 4 * ESTEP_ROWS)
+    lq, mq = -(-k // 4), -(-k // 8)
+    per_k = lq * mq
+    vec = 4 if k % 4 == 0 else (2 if k % 2 == 0 else 1)
+    gather = 6 * k / 50 / vec
+    fits = range(1, CROSS_MAX_THREADS // per_k + 1)
+    nk = min([nk for nk in fits if nk * per_k >= 128] or fits,
+             key=lambda nk: (-(-k // nk) * (-(-nk * per_k // 32) + gather), -nk))
+    cross_threads = nk * per_k
+    cross_smem = 4 * (2 * CROSS_ROWS * (2 * 4 * lq + 8 * mq) + 3 * CROSS_ROWS * 4
+                      + 3 * CROSS_ROWS)
+    if max(estep_smem, cross_smem) > _SMEM_LIMIT:
         return None
-    return Plan(estep_smem, cross_threads, cross_smem)
+    return Plan(kc, 16 * ncg, estep_smem, nk, vec, cross_threads, cross_smem)
+
+
+def rating_order(ratings: torch.Tensor, n_ratings: int):
+    """(order, off): a stable permutation of the rows by rating (int32 [B],
+    sorted position -> row) and the rating segments of it (int32 [R + 1]:
+    rating r at sorted positions off[r] .. off[r + 1]).  Rows with a rating
+    outside 0..R-1 sort last, past off[R].  Planning, on the rows' device:
+    it moves no row data."""
+    key = torch.where((ratings >= 0) & (ratings < n_ratings), ratings,
+                      torch.full_like(ratings, n_ratings)).long()
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    off = torch.zeros(n_ratings + 1, dtype=torch.int32, device=ratings.device)
+    off[1:] = torch.cumsum(torch.bincount(key, minlength=n_ratings + 1)[:n_ratings], 0)
+    return order, off
+
+
+def cross_splits(k: int, s: int, n_rows: int, n_ratings: int, plan: Plan, dev) -> int:
+    """Pass 2's row splits per rating: ~8 blocks per SM over the grid, and
+    at least one partial sum of rows a split."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = -(-k // plan.nk) * s * n_ratings
+    return max(1, min(-(-n_rows // (n_ratings * 64)), -(-8 * n_sm // blocks)))
+
+
+def launch_buffers(s: int, b: int, k: int, n_ratings: int, plan: Plan, dev):
+    """The kernel's scratch: packed p [S, R, K, 2, K, KC], scale [S, B]
+    and rowinfo [B, 4] (both in rating order)."""
+    pk = torch.empty((s, n_ratings, k, 2, k, plan.kc), dtype=torch.float32, device=dev)
+    scale = torch.empty((s, b), dtype=torch.float32, device=dev)
+    rowinfo = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    return pk, scale, rowinfo
 
 
 def em_ensemble_stats_reference(
@@ -102,18 +153,18 @@ def em_ensemble_stats(
     ll = torch.zeros(S, dtype=torch.float32, device=dev)
     if B == 0:
         return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
-    scale = torch.empty((S, B), dtype=torch.float32, device=dev)
-    # Split the rows of pass 2 until there are ~4 blocks per SM.
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-B // CROSS_ROWS), -(-4 * n_sm // (K * S))))
+    order, off = rating_order(batch.ratings, R)
+    pk, scale, rowinfo = launch_buffers(S, B, K, R, plan, dev)
+    splits = cross_splits(K, S, B, R, plan, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_em_sweep_large_k(
             thetas.data_ptr(), ps.data_ptr(), batch.triplets.data_ptr(),
-            batch.ratings.data_ptr(), batch.weights.data_ptr(),
+            batch.weights.data_ptr(), order.data_ptr(), off.data_ptr(), pk.data_ptr(),
             theta_hat.data_ptr(), p_hat.data_ptr(), ll.data_ptr(), scale.data_ptr(),
-            S, B, G, K, R, splits, plan.estep_smem, plan.cross_threads,
-            plan.cross_smem, torch.cuda.current_stream(dev).cuda_stream,
+            rowinfo.data_ptr(), S, B, G, K, R, plan.kc, plan.estep_threads,
+            plan.estep_smem, plan.nk, splits, plan.vec, plan.cross_threads, plan.cross_smem,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, KERNEL_NAME)
     em_ensemble_stats.launches += 1
