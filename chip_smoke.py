@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. K3       -- the large-K EM sweep kernel against its plain version at the
                headline N, G, R, S for K = 25, 50, 64 and 72, with both times,
                and at K = 50 and 72 its two passes' device times apart
-               (``torch.profiler``);
+               (``torch.profiler``); then at K8's shape (K = 64, G = 4000);
 5. K2       -- the scoring kernel against its plain version at the headline
                shape, at K = 50, and at G = 100,000 with 16,384 rows;
 6. the fit path -- ``fit`` (S = 10, K = 10, 50 sweeps, likelihood every
@@ -70,7 +70,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                K9 at N = 1,048,576, G = 1000, K = 10, S = 10 (minibatch
                131,072, 4 stream groups, 2 epochs: 16 launches) against the
                same fit on K1; each fit with the counts set to 0 just before
-               and read just after.
+               and read just after;
+11. the quality knobs -- K1 (K = 10) and K3 (K = 50) on (theta^0.3,
+               p^0.3) at the headline shape against their plain versions and
+               float64; then through the CLI on phase 6's rows and split, each
+               with the counts set to 0 just before and read just after: an
+               annealed ``fit`` (beta0 0.3, a 20-sweep ramp, 50 sweeps; no L
+               drop from the check at the ramp's end + 2 freq), a
+               ``--init spectral`` fit (the host init's seconds apart), and
+               ``fit -i 40`` with 2 split-merge and 2 refine rounds of 10
+               sweeps (80 sweeps, the best final L not below the main fit's);
+               a small fit with all four knobs through K1 against the plain
+               fit (final L and every accepted move); ``verify-parity`` on
+               ``datasets/example_trigenic.tsv`` (the native tokenizer ran,
+               the fingerprint's counts equal the Python parser's, K1 and K2
+               launched), and the native and Python parse times of a
+               200,000-row file (host CPU).
 
 The line before the last holds the kernels' record as JSON (``launches``
 sums the counted paths that run the kernel; ``bound_ms`` is the larger of
@@ -118,6 +133,8 @@ K7_SHAPES = ((25, 6000, 2), (50, 4000, 1), (64, 2000, 1))  # (K, G, S)
 STEPWISE_N, STEPWISE_MB = 1_048_576, 131_072
 STREAM_N, STREAM_GROUPS, STREAM_EPOCHS = 10_000_000, 8, 2
 RSORT_TILE = 512      # plan tile of the rating-sorted path (its default)
+ANNEAL_BETA = 0.3     # the DAEM start of phase 11
+K8_SHAPE = (64, 4000)  # (K, G) where the reference runs its bdrg kernel (K8)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -876,6 +893,256 @@ def rsorted_phase(card: str, dev, ds, train, k1_fit) -> dict:
     }
 
 
+def _events(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "events.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name (lscpu), with its core count."""
+    import platform
+
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+             if line.startswith("Model name")]
+    return f"{names[0] if names else platform.machine()}, {os.cpu_count()} cores"
+
+
+def quality_phase(card: str, dev, cli_main, ds, train, k1_fit) -> dict:
+    """Phase 11 (see the module docstring); ``ds`` and ``train`` are phase
+    3's rows and phase 6's split, ``k1_fit`` phase 6's fit.  Returns the
+    main-path launches of K1 and K2 in this phase."""
+    import numpy as np
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch import Config
+    from trigenicinteractionpredictor_tpu_torch.config import DataConfig
+    from trigenicinteractionpredictor_tpu_torch.data import (
+        TripletDataset,
+        kuzmin,
+        load_kuzmin_tsv,
+        sample_synthetic_dataset,
+        write_kuzmin_like_tsv,
+    )
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+    from trigenicinteractionpredictor_tpu_torch.native import binding
+    from trigenicinteractionpredictor_tpu_torch.ops import em_bdr, em_large_k, score
+    from trigenicinteractionpredictor_tpu_torch.ops.dispatch import plain_stats
+    from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
+    from trigenicinteractionpredictor_tpu_torch.train.checkpoint import load_checkpoint
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import fit
+
+    N, G, K, R, S = (HEADLINE[k] for k in ("n", "genes", "k", "ratings", "samples"))
+    counters = _launch_counters()
+    launched = {em_bdr.KERNEL_NAME: 0, score.KERNEL_NAME: 0}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items() if fn.launches}
+
+    # 11a. K1 and K3 on powered states against plain and float64
+    batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+    for k, mod in ((K, em_bdr), (50, em_large_k)):
+        st = init_state(G, k, R, samples=S, seed=21, device=dev)
+        th, p = st.theta ** ANNEAL_BETA, st.p ** ANNEAL_BETA
+        d_max = float(th.sum(-1).max()) ** 3 * float(p.sum(-1).max())
+        out = mod.em_ensemble_stats(th, p, batch)
+        ref = mod.em_ensemble_stats_reference(th, p, batch)
+        f64 = mod.em_ensemble_stats_reference(th.double(), p.double(), batch,
+                                              **({"row_chunk": 4096} if k > 20 else {}))
+        torch.cuda.synchronize()
+        _check_stats(f"{mod.KERNEL_NAME} K={k} on (theta^{ANNEAL_BETA}, p^{ANNEAL_BETA})",
+                     out, ref, f64)
+        del out, ref, f64
+        ms = _time_ms(lambda: mod.em_ensemble_stats(th, p, batch), 20 if k == K else 5)
+        unpowered = _time_ms(lambda: mod.em_ensemble_stats(st.theta, st.p, batch),
+                             20 if k == K else 5)
+        print(f"[anneal] {mod.KERNEL_NAME} K={k}: {ms:.4f} ms on powered states, {unpowered:.4f} "
+              f"ms on the simplex (N={N}, G={G}, R={R}, S={S}; D_beta up to {d_max:.4g}; {card})")
+        del st, th, p
+    del batch
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = ds.save_npz(os.path.join(tmp, "phase6.npz"))
+        base = ["fit", "-f", data, "-k", str(K), "-s", str(S), "-n", "10", "--device", "cuda"]
+
+        # 11b. the annealed fit through the CLI
+        out_b = os.path.join(tmp, "anneal")
+        reset()
+        assert cli_main(base + ["-i", "50", "-o", out_b, "--anneal-beta0", str(ANNEAL_BETA),
+                                "--anneal-sweeps", "20"]) == 0
+        run_b = counts()
+        ev_b = _events(out_b)
+        trace_b = load_checkpoint(os.path.join(out_b, "model.ckpt.npz"))["ll_trace"]
+
+        # 11c. the spectral-init fit through the CLI
+        out_c = os.path.join(tmp, "spectral")
+        reset()
+        assert cli_main(base + ["-i", "50", "-o", out_c, "--init", "spectral"]) == 0
+        run_c = counts()
+        ev_c = _events(out_c)
+        trace_c = load_checkpoint(os.path.join(out_c, "model.ckpt.npz"))["ll_trace"]
+
+        # 11d. split-merge and refine rounds through the CLI
+        out_d = os.path.join(tmp, "rounds")
+        reset()
+        assert cli_main(base + ["-i", "40", "-o", out_d, "--smem-rounds", "2",
+                                "--smem-sweeps", "10", "--refine-rounds", "2",
+                                "--refine-sweeps", "10"]) == 0
+        run_d = counts()
+        ev_d = _events(out_d)
+        with open(os.path.join(out_d, "report.json")) as fh:
+            report_d = json.load(fh)
+
+    disp = next(e for e in ev_b if e["event"] == "dispatch")
+    done = next(e for e in ev_b if e["event"] == "fit_done")
+    anneal = [e for e in ev_b if e["event"] == "anneal"]
+    freq = 10
+    first = (20 + 2 * freq) // freq - 1  # the row of the check at anneal_end + 2 freq
+    drop = _max_drop(trace_b[first:])
+    print(f"[anneal fit] dispatch {json.dumps(disp, sort_keys=True)}; launches {run_b}; "
+          f"{json.dumps(anneal)}; L trace (best restart) {trace_b.max(axis=1).tolist()} "
+          f"(annealed objective before sweep 20); largest relative L drop from sweep "
+          f"{(first + 1) * freq} {drop:.3e}")
+    print(f"[anneal fit] {done['sweeps'] / done['wall_s']:.2f} sweeps/s, "
+          f"{done['triplets_per_sec'] * S:.4e} restart-triplet updates/s; phase 6's plain "
+          f"fit {k1_fit.sweeps_run / k1_fit.wall_seconds:.2f} sweeps/s ({card})")
+    assert disp["kernel"] == em_bdr.KERNEL_NAME, disp
+    assert run_b.get(em_bdr.KERNEL_NAME, 0) >= 50, run_b
+    assert anneal and anneal[0]["ramp_sweeps"] == 20 and anneal[0]["beta0"] == ANNEAL_BETA
+    assert drop <= LL_DROP_RTOL and np.isfinite(done["ll_best"]) and np.isfinite(trace_b).all()
+
+    init = next(e for e in ev_c if e["event"] == "init")
+    done_c = next(e for e in ev_c if e["event"] == "fit_done")
+    print(f"[spectral fit] init on the host {init['seconds']:.4f} s ({init['method']}, "
+          f"S={init['samples']}; host CPU {_cpu_model()}), fit {done_c['wall_s']:.4f} s, "
+          f"{done_c['sweeps'] / done_c['wall_s']:.2f} sweeps/s ({card}); launches {run_c}; "
+          f"best L at each check {trace_c.max(axis=1).tolist()} (random init, phase 6: "
+          f"{k1_fit.ll_trace.max(axis=1).tolist()})")
+    assert init["method"] == "spectral" and run_c.get(em_bdr.KERNEL_NAME, 0) >= 50, run_c
+    assert np.isfinite(trace_c).all() and _max_drop(trace_c) <= LL_DROP_RTOL
+
+    names = [e["event"] for e in ev_d]
+    rounds = [e for e in ev_d if e["event"] in ("smem", "smem_done", "refine", "refine_done")]
+    for e in rounds:
+        print(f"[rounds] {e['event']} round {e['round']}: " + ", ".join(
+            f"{key} {e[key]}" for key in ("from_ll", "to_ll", "accepted_move") if key in e))
+    main_best = next(e["from_ll"] for e in rounds if e["event"] == "smem")
+    done_d = [e for e in ev_d if e["event"] == "fit_done"][-1]  # the whole fit's
+    print(f"[rounds] launches {run_d}; sweeps {report_d['sweeps']}; best final L "
+          f"{report_d['ll_best']} against the 40-sweep main fit's {main_best}; "
+          f"{done_d['sweeps'] / done_d['wall_s']:.2f} sweeps/s, "
+          f"{done_d['triplets_per_sec'] * S:.4e} restart-triplet updates/s over the main "
+          f"fit and its rounds ({card})")
+    assert run_d.get(em_bdr.KERNEL_NAME, 0) >= 80, run_d
+    assert report_d["sweeps"] == 80
+    assert [n for n in names if n in ("smem", "smem_done", "refine", "refine_done")] == [
+        "smem", "smem_done", "smem", "smem_done", "refine", "refine_done", "refine",
+        "refine_done"]
+    assert report_d["ll_best"] >= main_best - FIT_RTOL * abs(main_best)
+    print(f"[knobs] CLI fits at the headline shape: annealed {done['sweeps'] / done['wall_s']:.2f}"
+          f", spectral init (no annealing) {done_c['sweeps'] / done_c['wall_s']:.2f}, 40 + 4 x 10 "
+          f"rounds {done_d['sweeps'] / done_d['wall_s']:.2f} sweeps/s ({card})")
+    for run in (run_b, run_c, run_d):
+        launched[em_bdr.KERNEL_NAME] += run.get(em_bdr.KERNEL_NAME, 0)
+
+    # 11e. a small fit with all four knobs, kernel against plain (not counted)
+    small, _, _ = sample_synthetic_dataset(4096, 200, K, n_ratings=R, seed=4)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=K, sweeps=20, samples=4, likelihood_freq=5, seed=5, anneal_beta0=ANNEAL_BETA,
+        anneal_sweeps=10, init_method="spectral", smem_rounds=2, smem_sweeps=5, refine_rounds=2,
+        refine_sweeps=5))
+
+    class Events:
+        def __init__(self):
+            self.events = []
+
+        def log(self, event, **fields):
+            self.events.append((event, fields))
+
+    ev_kernel, ev_plain = Events(), Events()
+    via_kernel = fit(cfg, small, device=dev, logger=ev_kernel)
+    via_plain = fit(cfg, small, device=dev, logger=ev_plain, stats_fn=plain_stats)
+    done_rounds = [[(e, f.get("to_ll"), f.get("accepted_move")) for e, f in ev.events
+                    if e in ("smem_done", "refine_done")] for ev in (ev_kernel, ev_plain)]
+    print(f"[knobs] small fit (G=200, N=4096, S=4, all four knobs): kernel "
+          f"{via_kernel.final_loglik.tolist()} {done_rounds[0]}; plain "
+          f"{via_plain.final_loglik.tolist()} {done_rounds[1]}")
+    assert via_kernel.dispatch["kernel"] == em_bdr.KERNEL_NAME
+    assert via_kernel.sweeps_run == via_plain.sweeps_run == 40
+    # An accepted round patches the worst lane (argmin).  The main fit's lanes
+    # converge to one optimum from the spectral init, so that argmin falls
+    # among lanes equal to float32 rounding, and the patched lane's index
+    # differs from run to run on either route.  The lanes are exchangeable:
+    # compare them as a set, with the best L and every round's L as they are.
+    np.testing.assert_allclose(np.sort(via_kernel.final_loglik),
+                               np.sort(via_plain.final_loglik), rtol=FIT_RTOL)
+    np.testing.assert_allclose([ll for _, ll, _ in done_rounds[0]],
+                               [ll for _, ll, _ in done_rounds[1]], rtol=FIT_RTOL)
+    assert [m for _, _, m in done_rounds[0]] == [m for _, _, m in done_rounds[1]]
+
+    # 11f. verify-parity through the CLI, on the native tokenizer
+    example = os.path.join(os.path.dirname(os.path.abspath(__file__)), "datasets",
+                           "example_trigenic.tsv")
+    with tempfile.TemporaryDirectory() as tmp:
+        parses = binding.parses
+        reset()
+        assert cli_main(["verify-parity", "-f", example, "-k", "3", "-i", "30", "-s", "2",
+                         "-n", "10", "-o", tmp, "--device", "cuda"]) == 0
+        run_f = counts()
+        native_parses = binding.parses - parses
+        with open(os.path.join(tmp, "verify_parity.json")) as fh:
+            report_f = json.load(fh)
+
+        def python_counts(mode_cfg):
+            with open(example, newline="") as fh:
+                rows = kuzmin.parse_kuzmin_rows(fh, mode_cfg)
+            py = TripletDataset.from_rows(rows, n_ratings=mode_cfg.n_ratings,
+                                          arity=kuzmin._arity(mode_cfg))
+            return int(py.n_real), int(py.n_genes), int(np.sum(py.ratings == 1))
+
+        fp = report_f["loader_fingerprint"]["modes"]
+        for mode, got in fp.items():
+            mutant, tau_mode = mode.split("/")
+            want = python_counts(DataConfig(mutant_type=mutant, tau_mode=tau_mode))
+            assert (got["rows"], got["genes"], got["positives"]) == want, (mode, got, want)
+        big = os.path.join(tmp, "big.tsv")
+        write_kuzmin_like_tsv(big, n_rows=200_000, n_genes=1000, seed=3)
+        t0 = time.perf_counter()
+        via_native = load_kuzmin_tsv(big)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        binding.parse_kuzmin_file(big, DataConfig())
+        native_parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(big, newline="") as fh:
+            rows = kuzmin.parse_kuzmin_rows(fh, DataConfig())
+        python_parse_s = time.perf_counter() - t0
+        via_python = TripletDataset.from_rows(rows, n_ratings=2)
+        python_s = time.perf_counter() - t0
+    art = report_f["artifact"]["converged"]
+    print(f"[verify-parity] native parses {native_parses}; launches {run_f}; fingerprint "
+          f"{json.dumps(fp, sort_keys=True)} (equal to the Python parser's counts); AUC "
+          f"{art['auc']}, train L {art['train_loglik_best']}")
+    print(f"[tokenizer] {via_native.n_rows} trigenic rows of a 200,000-row file: load and "
+          f"pack native {native_s:.4f} s, Python {python_s:.4f} s; the parse to rows alone "
+          f"native {native_parse_s:.4f} s, Python {python_parse_s:.4f} s (host CPU "
+          f"{_cpu_model()}, not the card)")
+    assert native_parses >= 1
+    assert run_f.get(em_bdr.KERNEL_NAME, 0) >= 30 and run_f.get(score.KERNEL_NAME, 0) >= 1, run_f
+    assert np.isfinite(art["auc"])
+    np.testing.assert_array_equal(via_native.triplets, via_python.triplets)
+    np.testing.assert_array_equal(via_native.ratings, via_python.ratings)
+    launched[em_bdr.KERNEL_NAME] += run_f[em_bdr.KERNEL_NAME]
+    launched[score.KERNEL_NAME] += run_f[score.KERNEL_NAME]
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -989,6 +1256,28 @@ def main() -> int:
                   f"the rest of the call (pack, rating order) {split['other']:.4f} ms of "
                   f"device time per call (torch.profiler; {card})")
         del st
+    # K3 at K8's shape: where the reference runs its grouped bdrg kernel
+    k8, g8 = K8_SHAPE
+    ds8, _, _ = sample_synthetic_dataset(N, g8, K, n_ratings=R, seed=2)
+    batch8 = make_batch(ds8.triplets, ds8.ratings, ds8.weights, dev)
+    st = init_state(g8, k8, R, samples=S, seed=1, device=dev)
+    out = em_large_k.em_ensemble_stats(st.theta, st.p, batch8)
+    ref = em_large_k.em_ensemble_stats_reference(st.theta, st.p, batch8)
+    f64 = em_large_k.em_ensemble_stats_reference(
+        st.theta.double(), st.p.double(), batch8, row_chunk=4096
+    )
+    torch.cuda.synchronize()
+    k3_err = max(k3_err, _check_stats(f"K3 K={k8}, G={g8}", out, ref, f64))
+    del out, ref, f64
+    k8_ms = _time_ms(lambda: em_large_k.em_ensemble_stats(st.theta, st.p, batch8), 5)
+    k8_plain = _time_ms(
+        lambda: em_large_k.em_ensemble_stats_reference(st.theta, st.p, batch8), 3
+    )
+    k8_bound = _bound(_sweep_flops(N, k8, S), _sweep_bytes(N, g8, k8, R, S))
+    print(f"[K3] K={k8}, G={g8} (K8's shape): {k8_ms:.4f} ms/sweep-stats, plain "
+          f"{k8_plain:.4f} ms, bound {k8_bound[0]:.4f} ms ({k8_bound[1]}) (N={N}, R={R}, "
+          f"S={S}; {card})")
+    del st, batch8, ds8
     torch.cuda.empty_cache()
 
     # 5. K2 against its plain version.  At G = 1000 (K = 10 and K = 50) also
@@ -1175,6 +1464,9 @@ def main() -> int:
     # 10. the rating-sorted fit
     k9_kernel = rsorted_phase(card, dev, ds, train, res)
 
+    # 11. the quality knobs
+    quality_counts = quality_phase(card, dev, cli_main, ds, train, res)
+
     src = "trigenicinteractionpredictor_tpu_torch/csrc/"
     ref = "trigenicinteractionpredictor_tpu/ops/"
     k3_50, k3_top = k3_times[50], k3_times[em_large_k.MAX_K]
@@ -1184,7 +1476,7 @@ def main() -> int:
             "name": "em_sweep", "route": "cuda", "source": src + "em_sweep.cu",
             "replaces": ref + "pallas_em_bdr.py:279",
             "launches": k1_launches + sweep_launches["em_sweep"]
-            + stepwise_counts[em_bdr.KERNEL_NAME],
+            + stepwise_counts[em_bdr.KERNEL_NAME] + quality_counts[em_bdr.KERNEL_NAME],
             "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
             "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
         },
@@ -1192,7 +1484,7 @@ def main() -> int:
             "name": "score", "route": "cuda", "source": src + "score.cu",
             "replaces": ref + "pallas_score.py:120",
             "launches": k2_launches + sweep_launches["score"]
-            + stepwise_counts[score.KERNEL_NAME],
+            + stepwise_counts[score.KERNEL_NAME] + quality_counts[score.KERNEL_NAME],
             "max_abs_err": k2_err, "ms": k2_head["ms"], "plain_ms": k2_head["plain_ms"],
             "bound_ms": k2_head["bound_ms"], "bound_by": k2_head["bound_by"],
             "library_ms": k2_head["library_ms"], "at_k50_rows32768": k2[50],
@@ -1208,6 +1500,8 @@ def main() -> int:
             "at_k72": {"ms": k3_top[0], "plain_ms": k3_top[1], "bound_ms": k3_top[2][0],
                        "bound_by": k3_top[2][1], "pass1_ms": k3_top[3]["pass1"],
                        "pass2_ms": k3_top[3]["pass2"]},
+            "at_k64_g4000": {"ms": k8_ms, "plain_ms": k8_plain, "bound_ms": k8_bound[0],
+                             "bound_by": k8_bound[1]},
         },
         *large_g_kernels,
         k7_kernel,

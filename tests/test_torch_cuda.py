@@ -688,3 +688,117 @@ def test_k4_and_k5a_on_rating_layouts(dev, layout):
     for a, b in ((got, want), (got4, want4)):
         np.testing.assert_allclose(a[-2].cpu(), b[-2].cpu(), rtol=1e-6, atol=1e-5)
         np.testing.assert_allclose(a[-1].cpu(), b[-1].cpu(), rtol=1e-5)
+
+
+BETA = 0.3  # a DAEM inverse temperature early in the ramp
+
+
+def _assert_powered_stats(out, ref, f64):
+    """A sweep on (theta^beta, p^beta): off the simplex, D_beta grows toward
+    K^3, but theta_hat and p_hat stay responsibility sums of the same
+    magnitude, so the file's tolerances hold against the plain version;
+    against a float64 run of the plain version the max abs error is at most
+    1e-4 of max |plain| (chip_smoke.py's STATS_REL_TOL), and loglik rtol
+    1e-5."""
+    _assert_close_stats(out, ref)
+    for name in ("theta_hat", "p_hat"):
+        a, b, c = (getattr(x, name).double().cpu() for x in (out, ref, f64))
+        assert float((a - c).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    np.testing.assert_allclose(out.loglik.double().cpu(), f64.loglik.cpu(), rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "kernel,k,r,s",
+    [("K1", 10, 2, 4), ("K1", 20, 3, 2), ("K3", 25, 2, 3), ("K3", 50, 2, 2), ("K3", 72, 3, 1),
+     ("K4", 10, 2, 3), ("K5a", 10, 3, 3), ("K7", 25, 2, 2), ("K7", 64, 3, 1), ("K9", 10, 2, 3),
+     ("K9", em_rsorted.MAX_K, 2, 1)],
+)
+def test_sweep_kernels_on_powered_states(dev, kernel, k, r, s):
+    """Every sweep kernel the annealed fit runs, on (theta^0.3, p^0.3),
+    against its plain version and float64."""
+    g = 3000 if kernel in ("K4", "K5a") else 70
+    trip, rat, w, st = _large_g_case(1500, g, k, r, s, seed=91, dev=dev)
+    th, p = st.theta ** BETA, st.p ** BETA
+    assert float(th.sum(-1).max()) > 1.5  # off the simplex
+    if kernel == "K1":
+        tb = make_batch(trip, rat, w, dev)
+        run = lambda t_, p_: em_bdr.em_ensemble_stats(t_, p_, tb)  # noqa: E731
+        plain = lambda t_, p_: em_bdr.em_ensemble_stats_reference(t_, p_, tb)  # noqa: E731
+    elif kernel == "K3":
+        tb = make_batch(trip, rat, w, dev)
+        run = lambda t_, p_: em_large_k.em_ensemble_stats(t_, p_, tb)  # noqa: E731
+        plain = lambda t_, p_: em_large_k.em_ensemble_stats_reference(  # noqa: E731
+            t_, p_, tb, row_chunk=512)
+    elif kernel == "K4":
+        wb1 = em_bdg.bdg_plan(k, r)[1]
+        g1 = em_bdg.make_g1_plan(trip, g, wb1=wb1)
+        t2, r2, w2 = em_bdg.apply_g1_order(g1, trip, rat, w)
+        plan = em_large_g.make_scatter_plan(t2, g, wb=64, positions=(1, 2))
+        tb = make_batch(t2, r2, w2, dev, scatter=plan, g1=g1)
+        run = lambda t_, p_: em_bdg.bdg_em_ensemble_stats(t_, p_, tb, wb1=wb1, wb=64)  # noqa
+        plain = lambda t_, p_: em_bdg.bdg_em_ensemble_stats_reference(  # noqa: E731
+            t_, p_, tb, wb1=wb1, wb=64)
+    elif kernel == "K5a":
+        tb = make_batch(trip, rat, w, dev, scatter=em_large_g.make_scatter_plan(trip, g, wb=64))
+        run = lambda t_, p_: em_bd.bd_em_ensemble_stats(t_, p_, tb, wb=64)  # noqa: E731
+        plain = lambda t_, p_: em_bd.bd_em_ensemble_stats_reference(t_, p_, tb, wb=64)  # noqa
+    elif kernel == "K7":
+        tb = make_batch(trip, rat, w, dev)
+        run = lambda t_, p_: em_hybrid.hybrid_stats(  # noqa: E731
+            *em_hybrid.gather_rows(t_, tb.triplets), tb.triplets, tb.ratings, tb.weights, p_, g)
+        plain = lambda t_, p_: em_hybrid.em_ensemble_stats_reference(  # noqa: E731
+            *em_hybrid.gather_rows(t_, tb.triplets), tb.triplets, tb.ratings, tb.weights, p_, g)
+    else:
+        tile_b = 64 if k == 10 else 512
+        plan = em_rsorted.rating_sort_pad(rat, r, tile=tile_b)
+        tb = make_batch(*em_rsorted.apply_rating_sort(plan, trip, rat, w), dev,
+                        tile_rating=plan.tile_r)
+        run = lambda t_, p_: em_rsorted.rsorted_em_ensemble_stats(t_, p_, tb, tile_b)  # noqa
+        plain = lambda t_, p_: em_rsorted.rsorted_em_ensemble_stats_reference(  # noqa: E731
+            t_, p_, tb, tile_b)
+    out = run(th, p)
+    ref = plain(th, p)
+    f64 = plain(th.double(), p.double())
+    torch.cuda.synchronize()
+    _assert_powered_stats(out, ref, f64)
+
+
+@pytest.mark.parametrize("k,knobs", [
+    (6, dict(anneal_beta0=0.3, anneal_sweeps=10)),
+    (25, dict(anneal_beta0=0.3, anneal_sweeps=10)),
+    (6, dict(anneal_beta0=0.3, anneal_sweeps=10, init_method="spectral", smem_rounds=1,
+             smem_sweeps=5, refine_rounds=1, refine_sweeps=5)),
+])
+def test_fit_with_quality_knobs_matches_plain_fit(dev, k, knobs):
+    """An annealed fit (and one with all four knobs) through K1 / K3
+    against the same fit through the plain sweep: final L and trace rtol
+    1e-4, the same rounds' decisions."""
+    ds, _ = _case(4096, 200, 6, 2, 1, seed=3, dev=dev)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=k, sweeps=20, samples=3, likelihood_freq=5, seed=5, **knobs))
+
+    class Events:
+        def __init__(self):
+            self.events = []
+
+        def log(self, event, **fields):
+            self.events.append((event, fields))
+
+    ev_k, ev_p = Events(), Events()
+    via_kernel = fit(cfg, ds, device=dev, logger=ev_k)
+    via_plain = fit(cfg, ds, device=dev, logger=ev_p, stats_fn=plain_stats)
+    want = em_bdr.KERNEL_NAME if k <= 20 else em_large_k.KERNEL_NAME
+    assert via_kernel.dispatch["kernel"] == want
+    assert via_kernel.sweeps_run == via_plain.sweeps_run
+    # An accepted round patches the worst lane (argmin), which may fall among
+    # lanes equal to float32 rounding: compare the exchangeable lanes as a set.
+    np.testing.assert_allclose(np.sort(via_kernel.final_loglik),
+                               np.sort(via_plain.final_loglik), rtol=1e-4)
+    np.testing.assert_allclose(via_kernel.ll_trace, via_plain.ll_trace, rtol=1e-4)
+    rounds = [[(f["to_ll"], f.get("accepted_move")) for e, f in ev.events
+               if e in ("smem_done", "refine_done")] for ev in (ev_k, ev_p)]
+    np.testing.assert_allclose([ll for ll, _ in rounds[0]], [ll for ll, _ in rounds[1]],
+                               rtol=1e-4)
+    assert [m for _, m in rounds[0]] == [m for _, m in rounds[1]]
+    assert any(e == "anneal" for e, _ in ev_k.events)

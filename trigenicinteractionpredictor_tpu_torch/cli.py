@@ -1,6 +1,6 @@
 """Command-line entry points of the port (counterpart of the reference's
-``cli.py``, for ``fit``, ``cv``, ``sweep``, ``predict``, ``analyze`` and
-``synth``):
+``cli.py``, for ``fit``, ``cv``, ``sweep``, ``predict``, ``analyze``,
+``synth`` and ``verify-parity``):
 
     python -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv -k 10 -i 400 -s 10 -o runs/fit
     python -m trigenicinteractionpredictor_tpu_torch fit -f store_dir -k 25 -s 2 -i 3 --minibatch 131072 --stream-groups 4
@@ -9,6 +9,8 @@
     python -m trigenicinteractionpredictor_tpu_torch predict -f data.tsv --checkpoint runs/fit/model.ckpt.npz
     python -m trigenicinteractionpredictor_tpu_torch analyze --checkpoint runs/fit/model.ckpt.npz -f data.tsv
     python -m trigenicinteractionpredictor_tpu_torch synth -o synth.npz -n 100000 -g 1000
+    python -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv --anneal-beta0 0.3 --smem-rounds 2 --refine-rounds 2 --init spectral
+    python -m trigenicinteractionpredictor_tpu_torch verify-parity -f data.tsv -k 3 -o runs/parity [--no-fit] [--reference-mount DIR]
 
 Flags are the reference's, plus ``--device`` (default ``cuda``; a missing
 GPU is an error that names ``--device cpu``).  ``--backend jnp`` runs the
@@ -20,10 +22,12 @@ float32 in both precision modes.  ``--minibatch`` runs stepwise EM
 (``-i`` counts epochs), with ``--stream-groups``, ``--no-stream-prefetch``
 and ``--stream-prep-workers`` as in the reference; ``-f`` may name a
 ``save_dir`` store, which is read memory-mapped.  ``fit`` prints the route
-(and, stepwise, the minibatch layout) before its report.  Knobs this
-engine does not run yet (annealing, refine, split-merge, spectral init,
-mesh axes > 1) are refused by the trainer, never ignored.  ``bench`` and
-``verify-parity`` stay with the JAX package for now.
+(and, stepwise, the minibatch layout) before its report.  The quality
+knobs (``--anneal-beta0``, ``--refine-rounds``, ``--smem-rounds``,
+``--init spectral``) reach every unit's ``fit`` in ``fit``, ``sweep`` and
+``cv``.  What this engine does not run (mesh axes > 1; annealing, refine
+or split-merge with ``--minibatch``) is refused by the trainer, never
+ignored.  ``bench`` stays with the JAX package for now.
 """
 
 from __future__ import annotations
@@ -103,16 +107,22 @@ def _base_parser(sub: argparse.ArgumentParser) -> None:
                      help="stepwise: no look-ahead group (one group on the device)")
     sub.add_argument("--stream-prep-workers", type=int, default=0,
                      help="stepwise: host prep processes (0: auto, 1: in-thread)")
-    sub.add_argument("--anneal-beta0", type=float, default=1.0, help="(not ported)")
-    sub.add_argument("--anneal-sweeps", type=int, default=0)
-    sub.add_argument("--refine-rounds", type=int, default=0, help="(not ported)")
-    sub.add_argument("--refine-sweeps", type=int, default=0)
+    sub.add_argument("--anneal-beta0", type=float, default=1.0,
+                     help="DAEM start inverse temperature (1.0: off; classic EM only)")
+    sub.add_argument("--anneal-sweeps", type=int, default=0,
+                     help="DAEM ramp length in sweeps (0: half the sweeps)")
+    sub.add_argument("--refine-rounds", type=int, default=0,
+                     help="perturb-and-resweep rounds after the fit (classic EM only)")
+    sub.add_argument("--refine-sweeps", type=int, default=0,
+                     help="sweeps per refine round (0: a quarter of the sweeps)")
     sub.add_argument("--refine-eps", type=float, default=0.25)
-    sub.add_argument("--smem-rounds", type=int, default=0, help="(not ported)")
-    sub.add_argument("--smem-sweeps", type=int, default=0)
+    sub.add_argument("--smem-rounds", type=int, default=0,
+                     help="split-merge rounds after the fit, before refine (classic EM only)")
+    sub.add_argument("--smem-sweeps", type=int, default=0,
+                     help="sweeps per split-merge round (0: a quarter of the sweeps)")
     sub.add_argument(
         "--init", choices=["random", "spectral"], default="random",
-        help="restart initialization ('spectral' is not ported)",
+        help="restart initialization ('spectral': from the data, G <= 23,170)",
     )
 
 
@@ -326,6 +336,26 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def cmd_verify_parity(args) -> int:
+    from trigenicinteractionpredictor_tpu_torch.device import resolve_device
+    from trigenicinteractionpredictor_tpu_torch.parity import run_verify_parity
+
+    dev = resolve_device(args.device)
+    cfg = _make_config(args)
+    report = run_verify_parity(args.file, cfg, cfg.out_dir, do_fit=not args.no_fit,
+                               device=dev, reference_mount=args.reference_mount)
+    summary = {
+        "reference_files": report["reference_mount"]["n_files"],
+        "out": os.path.join(cfg.out_dir, "verify_parity.json"),
+        **{k: v["rows"] for k, v in report["loader_fingerprint"]["modes"].items()},
+    }
+    if "artifact" in report:
+        summary["heldout_auc"] = report["artifact"]["converged"]["auc"]
+        summary["train_ll_best"] = report["artifact"]["converged"]["train_loglik_best"]
+    print(json.dumps(summary))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="trigenicinteractionpredictor_tpu_torch",
@@ -386,6 +416,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_sy.add_argument("--seed", type=int, default=0)
     p_sy.add_argument("--ground-truth", default=None, help=".npz for (theta*, p*)")
     p_sy.set_defaults(fn=cmd_synth)
+
+    p_vp = subs.add_parser(
+        "verify-parity",
+        help="parity-readiness gate: reference-mount status, loader fingerprint, "
+             "and a reference-comparable converged artifact (docs/PARITY.md)",
+    )
+    _base_parser(p_vp)
+    p_vp.add_argument("--no-fit", action="store_true",
+                      help="fingerprint only; skip the training/artifact stage")
+    p_vp.add_argument("--reference-mount", default=None, metavar="DIR",
+                      help="directory that should hold the upstream reference tree")
+    p_vp.set_defaults(fn=cmd_verify_parity)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -13,9 +13,11 @@ Every cutoff is a :class:`~trigenicinteractionpredictor_tpu_torch.config.DataCon
 knob, and id assignment is by sorted gene name so folds reproduce across
 hosts (SURVEY.md §8.4 risks 5 and 7).
 
-The port's copy of the reference's ``data/kuzmin.py``.  It keeps only the
-pure-Python parser; the reference's native C++ tokenizer (same semantics,
-a speed path for huge files) is not carried over.
+The port's copy of the reference's ``data/kuzmin.py``.  Trigenic files go
+through the port's native C++ tokenizer (``native/``, the same semantics,
+built at first use); this module is the semantic source of truth and
+parses digenic files, and trigenic ones only where no g++ is on
+``PATH``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 
 from trigenicinteractionpredictor_tpu_torch.config import DataConfig
 from trigenicinteractionpredictor_tpu_torch.data.packing import TripletDataset
+from trigenicinteractionpredictor_tpu_torch.utils.logging import get_logger
 
 # Column-name aliases, matched case-insensitively after whitespace squeeze.
 _QUERY_COLS = ("query strain id", "query strain", "query")
@@ -182,8 +185,22 @@ def parse_kuzmin_tsv(text: str, cfg: Optional[DataConfig] = None) -> TripletData
 
 
 def load_kuzmin_tsv(path: str, cfg: Optional[DataConfig] = None) -> TripletDataset:
-    """Load and pack a Kuzmin-style TSV with the pure-Python parser."""
+    """Load and pack a Kuzmin-style TSV.
+
+    Trigenic rows come from the native tokenizer (``native/binding.py``);
+    its build or parse errors raise.  Digenic rows (pair extraction lives
+    here) and hosts with no g++ on ``PATH`` (logged) take the
+    pure-Python parser.
+    """
+    from trigenicinteractionpredictor_tpu_torch.native import binding
+
     cfg = cfg or DataConfig()
+    if _arity(cfg) == 3:
+        if binding.compiler() is not None:
+            return TripletDataset.from_rows(binding.parse_kuzmin_file(path, cfg),
+                                            n_ratings=cfg.n_ratings)
+        get_logger().log("native_tokenizer", available=False,
+                         reason="no g++ on PATH; using the Python parser")
     with open(path, "r", newline="") as fh:
         rows = parse_kuzmin_rows(fh, cfg)
     return TripletDataset.from_rows(rows, n_ratings=cfg.n_ratings, arity=_arity(cfg))

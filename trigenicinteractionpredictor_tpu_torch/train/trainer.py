@@ -17,17 +17,28 @@ tiles and the tile table on the batch; stepwise EM sorts every minibatch.
 
 Stepwise EM (``cfg.train.minibatch > 0``): see :func:`_run_stepwise`.
 
+The quality knobs, as in the reference: DAEM annealing
+(``anneal_beta0 < 1``) runs each sweep of the ramp through the unchanged
+stats function on (theta^beta, p^beta) and normalizes the unpowered state;
+``init_method="spectral"`` seeds the restarts from the data
+(``models/informed_init.py``, host numpy, before the timed window); after
+the main loop, split-merge rounds (:func:`_smem`) then perturb-and-resweep
+rounds (:func:`_refine`) re-seed the ensemble from the best state and
+resweep it through a recursive :func:`fit`.
+
 On CUDA every fit first runs the compute-integrity sentinel
 (``utils/integrity.py``), after the kernel build and before the timed
 window; its verdict is cached, so only a process's first fit pays for it.
 
-Not carried yet, and refused with ``NotImplementedError``: annealing,
-refine and split-merge rounds, the spectral init, and any mesh axis
-above 1.
+Refused: any mesh axis above 1 (``NotImplementedError``); stepwise EM
+together with annealing, refine or split-merge rounds, which the
+reference's stepwise loop skips without a word (``NotImplementedError``);
+the spectral init above ``informed_init.MAX_GENES`` genes (``ValueError``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -45,7 +56,13 @@ from trigenicinteractionpredictor_tpu_torch.models.mmsbm import (
     ModelState,
     init_state,
     state_from_numpy,
+    to_numpy,
 )
+from trigenicinteractionpredictor_tpu_torch.models.informed_init import (
+    MAX_GENES as SPECTRAL_MAX_GENES,
+    spectral_init_arrays,
+)
+from trigenicinteractionpredictor_tpu_torch.models.proposals import merge_split_candidate
 from trigenicinteractionpredictor_tpu_torch.ops import _build
 from trigenicinteractionpredictor_tpu_torch.ops.dispatch import (
     PLAIN_NAME,
@@ -98,24 +115,49 @@ def _dispatch_extra(dispatch_info: dict) -> dict:
     }
 
 
-def _check_scope(cfg: Config) -> None:
+def _anneal_schedule(tcfg) -> Optional[np.ndarray]:
+    """Per-sweep DAEM inverse temperatures, or None when annealing is off
+    (the reference's ``train/trainer.py::_anneal_schedule``, bit-equal).
+
+    Geometric ramp beta0 -> 1 over ``anneal_sweeps`` (default: half the
+    budget), then exact EM (beta = 1) for the remainder.
+    """
+    if tcfg.anneal_beta0 >= 1.0:
+        return None
+    A = tcfg.anneal_sweeps or max(tcfg.sweeps // 2, 1)
+    t = np.arange(tcfg.sweeps, dtype=np.float64)
+    ramp = tcfg.anneal_beta0 ** np.clip(1.0 - t / A, 0.0, 1.0)
+    return np.minimum(ramp, 1.0).astype(np.float32)
+
+
+def _check_scope(cfg: Config, n_genes: int) -> None:
     tcfg = cfg.train
-    missing = []
-    if tcfg.anneal_beta0 < 1.0:
-        missing.append(f"anneal_beta0={tcfg.anneal_beta0} (annealing)")
-    if tcfg.refine_rounds > 0:
-        missing.append(f"refine_rounds={tcfg.refine_rounds}")
-    if tcfg.smem_rounds > 0:
-        missing.append(f"smem_rounds={tcfg.smem_rounds}")
-    if tcfg.init_method != "random":
-        missing.append(f"init_method={tcfg.init_method!r}")
-    for axis in ("data", "ensemble", "model"):
-        if getattr(cfg.mesh, axis) > 1:
-            missing.append(f"mesh.{axis}={getattr(cfg.mesh, axis)} (one device only)")
+    missing = [f"mesh.{axis}={getattr(cfg.mesh, axis)} (one device only)"
+               for axis in ("data", "ensemble", "model") if getattr(cfg.mesh, axis) > 1]
     if missing:
         raise NotImplementedError(
             "not ported to the PyTorch engine yet: " + ", ".join(missing)
             + "; the JAX package (trigenicinteractionpredictor_tpu) runs them"
+        )
+    if tcfg.minibatch > 0:
+        # The reference's stepwise loop returns before any of these runs, so
+        # it ignores them without a word; the port refuses instead.
+        knobs = [name for name, on in (
+            (f"anneal_beta0={tcfg.anneal_beta0}", tcfg.anneal_beta0 < 1.0),
+            (f"refine_rounds={tcfg.refine_rounds}", tcfg.refine_rounds > 0),
+            (f"smem_rounds={tcfg.smem_rounds}", tcfg.smem_rounds > 0)) if on]
+        if knobs:
+            raise NotImplementedError(
+                f"stepwise EM (minibatch={tcfg.minibatch}) does not run "
+                + ", ".join(knobs) + "; use classic EM (minibatch=0) for them"
+            )
+    if tcfg.init_method not in ("random", "spectral"):
+        raise ValueError(f"unknown init_method {tcfg.init_method!r}; use 'random' or 'spectral'")
+    if tcfg.init_method == "spectral" and n_genes > SPECTRAL_MAX_GENES:
+        raise ValueError(
+            f"init_method='spectral' builds two dense G x G float64 co-occurrence "
+            f"matrices on the host: {2 * 8 * n_genes**2 / 2**30:.1f} GiB at G={n_genes} "
+            f"(limit G <= {SPECTRAL_MAX_GENES}, 8 GiB); use init_method='random'"
         )
 
 
@@ -178,9 +220,10 @@ def fit(
     ``resume`` -- checkpoint to continue from (same shapes).
     ``stats_fn`` -- override the dispatched sweep-stats function.
     ``init_states`` -- restart-stacked [S, ...] initial states (tensors or
-    arrays, e.g. the JAX package's) instead of the seeded random init.
+    arrays, e.g. the JAX package's) instead of the seeded random or
+    spectral init (the refine and split-merge rounds pass theirs).
     """
-    _check_scope(cfg)
+    _check_scope(cfg, train_ds.n_genes)
     log = logger or get_logger()
     tcfg = cfg.train
     dev = resolve_device(device)
@@ -229,6 +272,12 @@ def fit(
     check_em_integrity(dev, arity)
 
     def fresh_states() -> ModelState:
+        if tcfg.init_method == "spectral":
+            t_init = time.perf_counter()
+            th, pp = spectral_init_arrays(train_ds, K, S, seed=tcfg.seed)
+            log.log("init", method="spectral", samples=S,
+                    seconds=time.perf_counter() - t_init)
+            return state_from_numpy(th, pp, dev)
         return init_state(G, K, R, alpha=tcfg.init_alpha, arity=arity, samples=S,
                           seed=tcfg.seed, device=dev)
 
@@ -298,6 +347,23 @@ def fit(
             extra=_dispatch_extra(dispatch_info),
         )
 
+    # DAEM: while sweep < anneal_end, the sweep's stats come from the
+    # powered parameters, written into buffers allocated once per fit.
+    betas = _anneal_schedule(tcfg)
+    anneal_end = 0 if betas is None else (tcfg.anneal_sweeps or max(tcfg.sweeps // 2, 1))
+    powered = None
+    if betas is not None:
+        log.log("anneal", beta0=tcfg.anneal_beta0, ramp_sweeps=anneal_end)
+        powered = (torch.empty_like(states.theta), torch.empty_like(states.p))
+
+    def sweep_stats(at: int) -> SweepStats:
+        if at >= anneal_end:
+            return stats_fn(states.theta, states.p, batch)
+        beta = float(betas[at]) if at < len(betas) else 1.0
+        torch.pow(states.theta, beta, out=powered[0])
+        torch.pow(states.p, beta, out=powered[1])
+        return stats_fn(powered[0], powered[1], batch)
+
     prev_check: Optional[np.ndarray] = None
     pending: Optional[Tuple[int, torch.Tensor]] = None
     t0 = time.perf_counter()
@@ -319,9 +385,9 @@ def fit(
             triplets_per_sec=(at_sweep - start_sweep) * n_real / max(dt, 1e-9),
         )
         halt = False
-        # The reference's annealing guard reduces to this with no ramp: no
-        # early stop before the check at 2 * freq.
-        if tcfg.tol > 0 and prev_check is not None and at_sweep >= 2 * freq:
+        # While the ramp runs, L rows are the annealed objective: no early
+        # stop until this check and the previous one are past the ramp.
+        if tcfg.tol > 0 and prev_check is not None and at_sweep >= anneal_end + 2 * freq:
             if np.all(np.abs(ll_np - prev_check) < tcfg.tol):
                 halt = True
                 log.log("early_stop", sweep=at_sweep, tol=tcfg.tol)
@@ -332,8 +398,9 @@ def fit(
     stop = False
     while sweep < tcfg.sweeps and not stop:
         n_inner = next_boundary(sweep) - sweep
-        for _ in range(n_inner):
-            stats = stats_fn(states.theta, states.p, batch)
+        for i in range(n_inner):
+            stats = sweep_stats(sweep + i)
+            # The unpowered carry: zero-mass cells and untrained genes keep it.
             states = normalize_from_stats(states, stats, degrees)
         if tcfg.debug_nans and not (
             torch.isfinite(states.theta).all() and torch.isfinite(states.p).all()
@@ -355,6 +422,18 @@ def fit(
         log_likelihood(states, batch, row_chunk=cfg.engine.jnp_row_chunk)
         .cpu().numpy().astype(np.float64)
     )
+    del batch, powered  # the rounds' sub-fits build their own
+
+    # Split-merge topology jumps first, perturb-and-resweep polish after
+    # (the reference's order); each adds its sub-fits' sweeps, wall time
+    # and L rows.
+    for rounds, stage in ((tcfg.smem_rounds, _smem), (tcfg.refine_rounds, _refine)):
+        if rounds > 0:
+            states, final_ll, extra = stage(cfg, train_ds, dev, log, states, final_ll,
+                                            stats_fn)
+            sweep += extra["sweeps"]
+            wall += extra["wall"]
+            ll_rows.extend(extra["ll_rows"])
     n_sweeps = sweep - start_sweep
     tps = n_sweeps * n_real / max(wall, 1e-9)
     log.log(
@@ -372,6 +451,113 @@ def fit(
         wall_seconds=wall,
         dispatch=dispatch_info,
     )
+
+
+def _patch_worst_lane(cur_theta, cur_p, cur_ll, res: FitResult, lane: int):
+    """Accept a refinement result by replacing only the worst original lane
+    with the sub-fit's lane ``lane`` (the reference's ``_patch_worst_lane``):
+    the sub-fit's lanes are correlated explorations of one basin, so
+    replacing the whole ensemble would collapse the restart diversity the
+    sample-averaged score relies on; patching one lane keeps the best L
+    from dropping and keeps the spread."""
+    worst = int(np.argmin(cur_ll))
+    cur_theta, cur_p, cur_ll = cur_theta.copy(), cur_p.copy(), cur_ll.copy()
+    cur_theta[worst] = to_numpy(res.states.theta[lane])
+    cur_p[worst] = to_numpy(res.states.p[lane])
+    cur_ll[worst] = float(res.final_loglik[lane])
+    return cur_theta, cur_p, cur_ll
+
+
+def _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn, *, name, rounds,
+                    sweeps, seed_step, propose):
+    """The loop the refine and split-merge stages share (the reference's
+    ``_refine`` / ``_smem`` bodies).  Each round re-seeds all S lanes from
+    the current best state: lane 0 keeps it unperturbed, ``propose(th_b,
+    p_b, rng, s)`` makes lane s = 1..S-1's candidate and its move from
+    ``default_rng(seed + seed_step * (round + 1))``.  The lanes resweep
+    through a recursive :func:`fit` on the resolved ``stats_fn``; the best
+    proposal lane is accepted (patched over the worst original lane) only
+    if it beats both the incumbent and lane 0 by more than 1e-6."""
+    tcfg = cfg.train
+    S = tcfg.samples
+    sub_cfg = cfg.replace(train=dataclasses.replace(
+        tcfg, sweeps=sweeps, refine_rounds=0, smem_rounds=0, anneal_beta0=1.0,
+        anneal_sweeps=0, checkpoint_every=0, init_method="random"))
+    cur_theta, cur_p = to_numpy(states.theta), to_numpy(states.p)
+    cur_ll = np.asarray(final_ll)
+    extra = {"sweeps": 0, "wall": 0.0, "ll_rows": []}
+    for rnd in range(rounds):
+        best = int(np.argmax(cur_ll))
+        th_b, p_b = cur_theta[best], cur_p[best]
+        rng = np.random.default_rng(tcfg.seed + seed_step * (rnd + 1))
+        thetas = np.repeat(th_b[None], S, axis=0).astype(np.float32)
+        ps = np.repeat(p_b[None], S, axis=0).astype(np.float32)
+        moves = [None]
+        for s in range(1, S):
+            thetas[s], ps[s], mv = propose(th_b, p_b, rng, s)
+            moves.append(mv)
+        log.log(name, round=rnd, from_ll=float(cur_ll.max()), sweeps=sweeps)
+        res = fit(sub_cfg, train_ds, device=dev, logger=log, stats_fn=stats_fn,
+                  init_states=ModelState(theta=thetas, p=ps))
+        extra["sweeps"] += res.sweeps_run
+        extra["wall"] += res.wall_seconds
+        extra["ll_rows"].extend(list(res.ll_trace))
+        lane_ll = np.asarray(res.final_loglik, dtype=np.float64)
+        bar = max(float(cur_ll.max()), float(lane_ll[0])) + 1e-6
+        win = 1 + int(np.argmax(lane_ll[1:]))
+        accepted = bool(float(lane_ll[win]) > bar)
+        if accepted:
+            cur_theta, cur_p, cur_ll = _patch_worst_lane(cur_theta, cur_p, cur_ll, res, win)
+        done = {"round": rnd, "to_ll": float(cur_ll.max())}
+        if name == "smem":
+            done["accepted_move"] = (list(map(int, moves[win]))
+                                     if accepted and moves[win] else None)
+        log.log(name + "_done", **done)
+    return state_from_numpy(cur_theta, cur_p, dev), cur_ll, extra
+
+
+def _refine(cfg, train_ds, dev, log, states, final_ll, stats_fn):
+    """Perturb-and-resweep refinement (``TrainConfig.refine_rounds``): lanes
+    1..S-1 mix the best state with Dirichlet(1) noise at graded strengths
+    around ``refine_eps`` (the reference's ``_refine``)."""
+    tcfg = cfg.train
+    S = tcfg.samples
+    if S < 2:
+        # Perturbed candidates live in lanes 1..S-1.
+        log.log("refine_skipped", reason=f"needs samples >= 2, got {S}")
+        return states, np.asarray(final_ll), {"sweeps": 0, "wall": 0.0, "ll_rows": []}
+
+    def propose(th_b, p_b, rng, s):
+        G, K = th_b.shape
+        R, arity = p_b.shape[-1], p_b.ndim - 1
+        eps = min(tcfg.refine_eps * (0.5 + s / max(S - 1, 1)), 0.95)
+        th = (1 - eps) * th_b + eps * rng.dirichlet(np.ones(K), size=G)
+        pp = (1 - eps) * p_b + eps * rng.dirichlet(np.ones(R), size=(K,) * arity)
+        return th, pp, None
+
+    return _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn,
+                           name="refine", rounds=tcfg.refine_rounds,
+                           sweeps=tcfg.refine_sweeps or max(tcfg.sweeps // 4, 1),
+                           seed_step=7717, propose=propose)
+
+
+def _smem(cfg, train_ds, dev, log, states, final_ll, stats_fn):
+    """Split-merge EM rounds (``TrainConfig.smem_rounds``): lanes 1..S-1
+    each get an independent merge + split topology jump
+    (``models/proposals.py``; the reference's ``_smem``)."""
+    tcfg = cfg.train
+    S, K = tcfg.samples, tcfg.k
+    if K < 3 or S < 2:
+        # A merge and a split need three groups; the proposals need lanes 1..S-1.
+        reason = f"needs K >= 3, got {K}" if K < 3 else f"needs samples >= 2, got {S}"
+        log.log("smem_skipped", reason=reason)
+        return states, np.asarray(final_ll), {"sweeps": 0, "wall": 0.0, "ll_rows": []}
+    return _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn,
+                           name="smem", rounds=tcfg.smem_rounds,
+                           sweeps=tcfg.smem_sweeps or max(tcfg.sweeps // 4, 1),
+                           seed_step=9091,
+                           propose=lambda th_b, p_b, rng, s: merge_split_candidate(
+                               th_b, p_b, rng))
 
 
 class _GroupStager:
