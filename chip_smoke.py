@@ -85,7 +85,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                ``datasets/example_trigenic.tsv`` (the native tokenizer ran,
                the fingerprint's counts equal the Python parser's, K1 and K2
                launched), and the native and Python parse times of a
-               200,000-row file (host CPU).
+               200,000-row file (host CPU);
+12. the multi-rank engine -- worlds started by torchrun (``python -m
+               torch.distributed.run``), every rank on the one card
+               (``cuda:0``), each rank's kernel launches set to 0 just before
+               its fit and read just after, and the per-sweep all_reduce at
+               the fit's shape timed by CUDA events: 12a phase 6's fit as a
+               world of one under NCCL (final L within 1e-6 of phase 6's fit,
+               its trace within 1e-5: K1 sums the trace's L by atomics); 12b
+               two gloo ranks, ``data 2``, and 12c four, ``data 2 x
+               ensemble 2`` (K1 on each rank's rows and restarts; the same
+               stop sweep and L within 1e-5 of phase 6's fit); 12d two ranks,
+               ``model 2``, K = 50, S = 2, 10 sweeps, against the one-process
+               K3 fit (L rtol 1e-5, theta and p atol 2e-5); 12e ``sweep
+               --k-grid 5,10`` on two ranks through the CLI (one unit a rank;
+               records within 1e-5 of the one-process job); 12f phase 9b's
+               stepwise fit over ``data 2`` (K7; final L within 1e-4 of the
+               one-process fit).  The ranks share one card, so these runs
+               check the code across ranks, not scaling over GPUs.
 
 The line before the last holds the kernels' record as JSON (``launches``
 sums the counted paths that run the kernel; ``bound_ms`` is the larger of
@@ -1143,6 +1160,301 @@ def quality_phase(card: str, dev, cli_main, ds, train, k1_fit) -> dict:
     return launched
 
 
+DIST_TIMEOUT_S = 300   # a rank's process group: a dead peer fails the others
+DIST_WAIT_S = 600      # one world of phase 12, start to end
+DIST_FIT_RTOL = 1e-5   # a multi-rank fit against the one-process fit (12b, 12c, 12e)
+# 12a: a world of one runs the same sums, so its final L (plain torch on the
+# final states) is held to 1e-6; its L trace is K1's in-kernel loglik,
+# summed by atomics in an order that changes from run to run (phase 6's
+# fit run twice in one process: 4.3e-7 apart), so held to DIST_FIT_RTOL.
+NCCL_ONE_RTOL = 1e-6
+TP_ATOL = 2e-5         # 12d: the reference's TP fit tolerance (rtol: DIST_FIT_RTOL)
+DIST_STEPWISE_RTOL = 1e-4  # 12f: the stepwise fit
+
+
+def _run_ranks(tag: str, cmd: list, here: str) -> float:
+    """Run ``cmd`` (a torchrun launch) from ``here``; echo the ranks'
+    ``[12`` lines; fail on a non-zero exit or past DIST_WAIT_S, killing the
+    launch's whole process group.  Returns the wall seconds."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_WAIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"[{tag}] ranks still running after {DIST_WAIT_S} s")
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith("[12"):
+            print(line)
+    if proc.returncode != 0:
+        print(out[-6000:], file=sys.stderr)
+        print(err[-6000:], file=sys.stderr)
+        raise AssertionError(f"[{tag}] a rank failed (exit {proc.returncode})")
+    return wall
+
+
+def _torchrun(nproc: int) -> list:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+            "--master-addr", "127.0.0.1", "--master-port", str(port)]
+
+
+def rank_main(spec: dict) -> int:
+    """One rank of a phase-12 fit (``chip_smoke.py --rank SPEC``, started by
+    torchrun): ``fit`` over the mesh in ``spec`` on the one card, with the
+    kernels' launch counts set to 0 just before and read just after; then
+    the per-sweep all_reduce at the fit's shape, timed by CUDA events.
+    Writes ``<out>.rank<r>.npz`` and prints one line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from datetime import timedelta
+
+    from trigenicinteractionpredictor_tpu_torch.config import (
+        Config,
+        EngineConfig,
+        MeshConfig,
+        TrainConfig,
+    )
+    from trigenicinteractionpredictor_tpu_torch.data import TripletDataset
+    from trigenicinteractionpredictor_tpu_torch.ops.em import SweepStats
+    from trigenicinteractionpredictor_tpu_torch.parallel import sharded_em
+    from trigenicinteractionpredictor_tpu_torch.parallel.distributed import (
+        maybe_initialize,
+        rank_device,
+        shutdown,
+    )
+    from trigenicinteractionpredictor_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, fit
+    from trigenicinteractionpredictor_tpu_torch.utils.integrity import check_em_integrity
+
+    topo = maybe_initialize(spec["device"], spec["backend"],
+                            timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    dev = rank_device(spec["device"])
+    rank = topo.process_index
+    train = TripletDataset.load_npz(spec["data"])
+    ens, model, data = spec["mesh"]
+    cfg = Config(train=TrainConfig(**spec["train"]),
+                 mesh=MeshConfig(data=data, ensemble=ens, model=model),
+                 engine=EngineConfig(backend=spec.get("engine", "auto")))
+    counters = _launch_counters()
+    events = f"{spec['out']}.events{rank}.jsonl"
+    # The sentinel's probes first (a fit runs them on a process's first
+    # call), so the counts below are the fit's sweeps alone.
+    check_em_integrity(dev, 3)
+    with JsonlLogger(events, echo=False) as log:
+        for fn in counters.values():
+            fn.launches = 0
+        res = fit(cfg, train, device=dev, logger=log)
+        launches = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    with open(events) as fh:
+        shard = next(e for e in map(json.loads, fh) if e["event"] == "shard")
+    # The per-sweep all_reduce over data at this fit's shape (and, for the
+    # tensor-parallel fit, one model all_reduce of a row chunk's A buffer).
+    mesh = make_mesh(data=data, ensemble=ens, model=model)
+    s_all, G, K = res.states.theta.shape
+    S, kb = s_all // ens, K // model
+    R = res.states.p.shape[-1]
+    stats = SweepStats(torch.zeros(S, G, K, device=dev),
+                       torch.zeros(S, K, kb, K, R, device=dev), torch.zeros(S, device=dev))
+    reduce_ms = _time_ms(lambda: sharded_em.reduce_stats(stats, mesh), 10)
+    extra = ""
+    model_ms = None
+    if model > 1:
+        chunk = min(cfg.engine.jnp_row_chunk, shard["rows"])
+        a = torch.zeros(3, S, chunk, K, device=dev)
+        model_ms = _time_ms(lambda: sharded_em.all_reduce_packed([a], mesh.group(MODEL_AXIS)),
+                            10)
+        extra = (f", model all_reduce of one {chunk}-row chunk {model_ms:.4f} ms "
+                 f"({-(-shard['rows'] // chunk)} a sweep)")
+    # One write a line: the ranks share torchrun's stdout.
+    sys.stdout.write(
+        f"[{spec['tag']}] rank {rank}/{topo.process_count} on {dev} ({spec['backend']}): "
+        f"rows {shard['rows']} from {shard['first_row']}, S_local {shard['samples']}, "
+        f"kernel {res.dispatch['kernel']}, launches {json.dumps(launches, sort_keys=True)}, "
+        f"{res.sweeps_run} sweeps in {res.wall_seconds:.4f} s, per-sweep data all_reduce "
+        f"{reduce_ms:.4f} ms{extra} (CUDA events)\n")
+    sys.stdout.flush()
+    np.savez(f"{spec['out']}.rank{rank}.npz", final_ll=res.final_loglik, trace=res.ll_trace,
+             sweeps=res.sweeps_run, wall=res.wall_seconds, theta=res.states.theta.cpu(),
+             p=res.states.p.cpu(), kernel=res.dispatch["kernel"], rows=shard["rows"],
+             samples=shard["samples"], launches=json.dumps(launches), reduce_ms=reduce_ms,
+             model_ms=-1.0 if model_ms is None else model_ms)
+    shutdown()
+    return 0
+
+
+def distributed_phase(card: str, dev, cli_main, train, k1_fit) -> dict:
+    """Phase 12 (see the module docstring); ``train`` is phase 6's split and
+    ``k1_fit`` phase 6's fit.  Returns the ranks' main-path launches by
+    kernel name."""
+    import numpy as np
+
+    from trigenicinteractionpredictor_tpu_torch import Config
+    from trigenicinteractionpredictor_tpu_torch.data import (
+        sample_synthetic_dataset,
+        train_test_split,
+    )
+    from trigenicinteractionpredictor_tpu_torch.ops import em_bdr, em_hybrid, em_large_k
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, fit
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    quiet = JsonlLogger(None, echo=False)
+    launched = {em_bdr.KERNEL_NAME: 0, em_hybrid.KERNEL_NAME: 0}
+    note = ("ranks share one card: a check of the code across ranks, not of scaling "
+            "over GPUs; NCCL above one rank is unchecked here")
+    headline = dict(k=HEADLINE["k"], sweeps=50, samples=HEADLINE["samples"],
+                    likelihood_freq=10, seed=0)
+
+    def world(tag, nproc, backend, mesh, train_kw, data, engine="auto"):
+        out = os.path.join(tmp, tag)
+        spec = {"tag": tag, "device": "cuda:0", "backend": backend, "mesh": mesh,
+                "train": train_kw, "data": data, "out": out, "engine": engine}
+        wall = _run_ranks(tag, _torchrun(nproc) + [os.path.join(here, "chip_smoke.py"),
+                                                    "--rank", json.dumps(spec)], here)
+        outs = [dict(np.load(f"{out}.rank{r}.npz")) for r in range(nproc)]
+        print(f"[{tag}] {nproc} rank(s), {backend}, mesh (ensemble, model, data) = {mesh}: "
+              f"command {wall:.2f} s, fit {max(float(o['wall']) for o in outs):.4f} s "
+              f"({card}; {note})")
+        return outs
+
+    def same_fit(tag, outs, ref, rtol, trace_rtol=None):
+        trace_rtol = trace_rtol or rtol
+        for o in outs:
+            ll_err = float(np.max(np.abs(o["final_ll"] - ref.final_loglik)
+                                  / np.abs(ref.final_loglik)))
+            tr_err = float(np.max(np.abs(o["trace"] - ref.ll_trace) / np.abs(ref.ll_trace)))
+            print(f"[{tag}] against the one-process fit ({ref.sweeps_run} sweeps in "
+                  f"{ref.wall_seconds:.4f} s): {int(o['sweeps'])} sweeps, final L max rel err "
+                  f"{ll_err:.3e} (rtol {rtol:g}), trace {tr_err:.3e} (rtol {trace_rtol:g})")
+            assert int(o["sweeps"]) == ref.sweeps_run
+            assert np.isfinite(o["final_ll"]).all() and ll_err <= rtol
+            assert tr_err <= trace_rtol
+
+    def k1_launches(outs, sweeps):
+        for o in outs:
+            n = json.loads(str(o["launches"])).get(em_bdr.KERNEL_NAME, 0)
+            assert str(o["kernel"]) == em_bdr.KERNEL_NAME and n >= sweeps, (o["kernel"], n)
+            launched[em_bdr.KERNEL_NAME] += n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train.npz")
+        train.save_npz(data)
+        n_train = train.n_rows
+
+        # Two runs of one fit differ where K1's atomics add in another
+        # order: the spread of phase 6's fit against a second one, for scale.
+        again_cfg = Config()
+        again_cfg = again_cfg.replace(train=dataclasses.replace(again_cfg.train, **headline))
+        again = fit(again_cfg, train, device=dev, logger=quiet)
+        spread = [float(np.max(np.abs(a - b) / np.abs(b))) for a, b in (
+            (again.ll_trace, k1_fit.ll_trace), (again.final_loglik, k1_fit.final_loglik))]
+        print(f"[12] phase 6's fit run again in this process: trace max rel diff "
+              f"{spread[0]:.3e}, final L {spread[1]:.3e} ({card})")
+
+        # 12a. a world of one under NCCL: the mesh code with its collectives
+        outs = world("12a", 1, "nccl", (1, 1, 1), headline, data)
+        k1_launches(outs, 50)
+        same_fit("12a", outs, k1_fit, NCCL_ONE_RTOL, trace_rtol=DIST_FIT_RTOL)
+
+        # 12b. two gloo ranks, data 2
+        outs = world("12b", 2, "gloo", (1, 1, 2), headline, data)
+        k1_launches(outs, 50)
+        assert [int(o["rows"]) for o in outs] == [-(-n_train // 2), n_train - (-(-n_train // 2))]
+        same_fit("12b", outs, k1_fit, DIST_FIT_RTOL)
+
+        # 12c. four gloo ranks, data 2 x ensemble 2: K1 at S_local = 5
+        outs = world("12c", 4, "gloo", (2, 1, 2), headline, data)
+        k1_launches(outs, 50)
+        assert all(int(o["samples"]) == HEADLINE["samples"] // 2 for o in outs)
+        same_fit("12c", outs, k1_fit, DIST_FIT_RTOL)
+
+        # 12d. tensor parallelism, model 2, K = 50, against the one-process K3 fit
+        tp_kw = dict(k=50, sweeps=10, samples=2, likelihood_freq=5, seed=0)
+        outs = world("12d", 2, "gloo", (1, 2, 1), tp_kw, data)
+        ref_cfg = Config()
+        ref_cfg = ref_cfg.replace(train=dataclasses.replace(ref_cfg.train, **tp_kw))
+        ref = fit(ref_cfg, train, device=dev, logger=quiet)
+        assert ref.dispatch["kernel"] == em_large_k.KERNEL_NAME, ref.dispatch
+        same_fit("12d", outs, ref, DIST_FIT_RTOL)
+        for o in outs:
+            th = float(np.abs(o["theta"] - ref.states.theta.cpu().numpy()).max())
+            pp = float(np.abs(o["p"] - ref.states.p.cpu().numpy()).max())
+            print(f"[12d] kernel {o['kernel']}; theta max abs err {th:.3e}, p {pp:.3e} "
+                  f"(atol {TP_ATOL:g})")
+            assert str(o["kernel"]) == "jnp-tp" and th <= TP_ATOL and pp <= TP_ATOL
+
+        # 12e. the K-sweep job's units over two ranks, through the CLI
+        synth = os.path.join(tmp, "synth.npz")
+        assert cli_main(["synth", "-o", synth, "-n", str(HEADLINE["n"]),
+                         "-g", str(HEADLINE["genes"]), "-k", str(HEADLINE["k"]),
+                         "--seed", "0"]) == 0
+        grid = ["--k-grid", "5,10", "-s", str(HEADLINE["samples"]), "-i", "10", "-n", "5"]
+        ranks_dir, one_dir = os.path.join(tmp, "sweep2"), os.path.join(tmp, "sweep1")
+        wall = _run_ranks("12e", _torchrun(2) + [
+            "-m", "trigenicinteractionpredictor_tpu_torch", "sweep", "-f", synth, *grid,
+            "-o", ranks_dir, "--device", "cuda:0", "--dist-backend", "gloo",
+            "--dist-timeout", str(DIST_TIMEOUT_S)], here)
+        assert cli_main(["sweep", "-f", synth, *grid, "-o", one_dir, "--device", "cuda"]) == 0
+        with open(os.path.join(ranks_dir, "report.json")) as fh:
+            got = json.load(fh)
+        with open(os.path.join(one_dir, "report.json")) as fh:
+            want = json.load(fh)
+        starts = {}
+        for r in (0, 1):
+            with open(os.path.join(ranks_dir, f"events_p{r}.jsonl")) as fh:
+                starts[r] = [e["unit"] for e in map(json.loads, fh) if e["event"] == "unit_start"]
+        print(f"[12e] sweep --k-grid 5,10 on 2 ranks: units by rank {starts}, command "
+              f"{wall:.2f} s ({card}; {note})")
+        assert [len(u) for u in starts.values()] == [1, 1]
+        assert [u["unit"] for u in got["units"]] == [u["unit"] for u in want["units"]]
+        for g, w in zip(got["units"], want["units"]):
+            err = float(np.max(np.abs(np.subtract(g["ll_per_sample"], w["ll_per_sample"]))
+                               / np.abs(w["ll_per_sample"])))
+            print(f"[12e] {g['unit']} (rank {g['process']}, {g['dispatch']['kernel']}): final L "
+                  f"max rel err against one process {err:.3e}, heldout L {g['heldout_loglik']:.6g}"
+                  f" / {w['heldout_loglik']:.6g} (rtol {DIST_FIT_RTOL:g})")
+            assert g["sweeps"] == w["sweeps"] and err <= DIST_FIT_RTOL
+            assert abs(g["heldout_loglik"] - w["heldout_loglik"]) <= DIST_FIT_RTOL * abs(
+                w["heldout_loglik"])
+        assert got["summary"]["best_k_per_fold"] == want["summary"]["best_k_per_fold"]
+
+        # 12f. phase 9b's stepwise fit over two ranks (data 2, route K7)
+        G, K = 6000, 25
+        big, _, _ = sample_synthetic_dataset(STEPWISE_N, G, K, n_ratings=2, seed=0)
+        big_train, _ = train_test_split(big, 0.2, seed=0)
+        big_data = os.path.join(tmp, "big.npz")
+        big_train.save_npz(big_data)
+        sw_kw = dict(k=K, sweeps=3, samples=2, likelihood_freq=1, seed=0,
+                     minibatch=STEPWISE_MB, stream_groups=4)
+        outs = world("12f", 2, "gloo", (1, 1, 2), sw_kw, big_data)
+        sw_cfg = Config()
+        sw_cfg = sw_cfg.replace(train=dataclasses.replace(sw_cfg.train, **sw_kw))
+        ref = fit(sw_cfg, big_train, device=dev, logger=quiet)
+        assert ref.dispatch["kernel"] == em_hybrid.KERNEL_NAME, ref.dispatch
+        same_fit("12f", outs, ref, DIST_STEPWISE_RTOL)
+        for o in outs:
+            n = json.loads(str(o["launches"])).get(em_hybrid.KERNEL_NAME, 0)
+            assert str(o["kernel"]) == em_hybrid.KERNEL_NAME and n >= 3, (o["kernel"], n)
+            launched[em_hybrid.KERNEL_NAME] += n
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1166,7 +1478,13 @@ def main() -> int:
     from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
     from trigenicinteractionpredictor_tpu_torch.cli import main as cli_main
     from trigenicinteractionpredictor_tpu_torch.ab_kernels import pass_split
-    from trigenicinteractionpredictor_tpu_torch.ops import _build, em_bdr, em_large_k, score
+    from trigenicinteractionpredictor_tpu_torch.ops import (
+        _build,
+        em_bdr,
+        em_hybrid,
+        em_large_k,
+        score,
+    )
     from trigenicinteractionpredictor_tpu_torch.ops.dispatch import plain_stats
     from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
     from trigenicinteractionpredictor_tpu_torch.ops.scoring import (
@@ -1467,6 +1785,10 @@ def main() -> int:
     # 11. the quality knobs
     quality_counts = quality_phase(card, dev, cli_main, ds, train, res)
 
+    # 12. the multi-rank engine: torchrun worlds on the one card
+    dist_counts = distributed_phase(card, dev, cli_main, train, res)
+    k7_kernel["launches"] += dist_counts[em_hybrid.KERNEL_NAME]
+
     src = "trigenicinteractionpredictor_tpu_torch/csrc/"
     ref = "trigenicinteractionpredictor_tpu/ops/"
     k3_50, k3_top = k3_times[50], k3_times[em_large_k.MAX_K]
@@ -1476,7 +1798,8 @@ def main() -> int:
             "name": "em_sweep", "route": "cuda", "source": src + "em_sweep.cu",
             "replaces": ref + "pallas_em_bdr.py:279",
             "launches": k1_launches + sweep_launches["em_sweep"]
-            + stepwise_counts[em_bdr.KERNEL_NAME] + quality_counts[em_bdr.KERNEL_NAME],
+            + stepwise_counts[em_bdr.KERNEL_NAME] + quality_counts[em_bdr.KERNEL_NAME]
+            + dist_counts[em_bdr.KERNEL_NAME],
             "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
             "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
         },
@@ -1519,4 +1842,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(json.loads(sys.argv[2])))
     sys.exit(main())

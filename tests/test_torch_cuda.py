@@ -802,3 +802,51 @@ def test_fit_with_quality_knobs_matches_plain_fit(dev, k, knobs):
                                rtol=1e-4)
     assert [m for _, m in rounds[0]] == [m for _, m in rounds[1]]
     assert any(e == "anneal" for e, _ in ev_k.events)
+
+
+CARD_RANK = r"""
+import sys
+from datetime import timedelta
+import numpy as np
+import torch
+from trigenicinteractionpredictor_tpu_torch.config import Config, MeshConfig, TrainConfig
+from trigenicinteractionpredictor_tpu_torch.data import sample_synthetic_dataset
+from trigenicinteractionpredictor_tpu_torch.ops import em_bdr
+from trigenicinteractionpredictor_tpu_torch.parallel.distributed import (
+    maybe_initialize, rank_device, shutdown)
+from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, fit
+
+topo = maybe_initialize("cuda:0", "gloo", timeout=timedelta(seconds=120))
+dev = rank_device("cuda:0")
+ds, _, _ = sample_synthetic_dataset(4096, 200, 10, n_ratings=2, seed=4)
+cfg = Config(train=TrainConfig(k=10, sweeps=20, samples=4, likelihood_freq=5, seed=5),
+             mesh=MeshConfig(data=2))
+em_bdr.em_ensemble_stats.launches = 0
+r = fit(cfg, ds, device=dev, logger=JsonlLogger(None, echo=False))
+np.savez(sys.argv[1] + f".{topo.process_index}.npz", ll=r.final_loglik, trace=r.ll_trace,
+         sweeps=r.sweeps_run, launches=em_bdr.em_ensemble_stats.launches,
+         kernel=r.dispatch["kernel"])
+shutdown()
+"""
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(dev, tmp_path):
+    """Two ranks share the card under gloo (data 2), each running K1 on its
+    half of the rows: the same sweeps and L (rtol 1e-5) as the one-process
+    fit on the card."""
+    import torch_ranks
+
+    script = tmp_path / "rank.py"
+    script.write_text(CARD_RANK)
+    torch_ranks.wait(torch_ranks.start_world(str(script), 2, [tmp_path / "out"]))
+    ds, _, _ = sample_synthetic_dataset(4096, 200, 10, n_ratings=2, seed=4)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, k=10, sweeps=20, samples=4,
+                                                likelihood_freq=5, seed=5))
+    one = fit(cfg, ds, device=dev, logger=JsonlLogger(None, echo=False))
+    for rank in (0, 1):
+        z = np.load(tmp_path / f"out.{rank}.npz")
+        assert str(z["kernel"]) == em_bdr.KERNEL_NAME and int(z["launches"]) == 20
+        assert int(z["sweeps"]) == one.sweeps_run
+        np.testing.assert_allclose(z["ll"], one.final_loglik, rtol=1e-5)
+        np.testing.assert_allclose(z["trace"], one.ll_trace, rtol=1e-5)

@@ -124,9 +124,15 @@ def test_run_units_markers_skip_and_resume(tmp_path):
 
 
 def test_run_units_is_one_process(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        driver.run_units(_cfg(tmp_path), _ds(), k_grid=[2], process_index=1,
-                         process_count=2, device="cpu")
+    """Each process runs its round-robin share of the units, in one process
+    (the reference's ``i % process_count == process_index``): process 1 of
+    2 runs the second unit only, logs to events_p1.jsonl and records its
+    index."""
+    recs = driver.run_units(_cfg(tmp_path), _ds(), k_grid=[2, 3], process_index=1,
+                            process_count=2, device="cpu")
+    assert [r["unit"] for r in recs] == ["fold0_k3"] and recs[0]["process"] == 1
+    assert (tmp_path / "events_p1.jsonl").exists()
+    assert sorted(os.listdir(tmp_path / "units")) == ["fold0_k3.ckpt.npz", "fold0_k3.json"]
 
 
 @pytest.mark.parametrize(

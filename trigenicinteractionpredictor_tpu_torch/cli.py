@@ -25,9 +25,25 @@ and ``--stream-prep-workers`` as in the reference; ``-f`` may name a
 (and, stepwise, the minibatch layout) before its report.  The quality
 knobs (``--anneal-beta0``, ``--refine-rounds``, ``--smem-rounds``,
 ``--init spectral``) reach every unit's ``fit`` in ``fit``, ``sweep`` and
-``cv``.  What this engine does not run (mesh axes > 1; annealing, refine
-or split-merge with ``--minibatch``) is refused by the trainer, never
-ignored.  ``bench`` stays with the JAX package for now.
+``cv``.  What this engine does not run (annealing, refine or split-merge
+with ``--minibatch``) is refused by the trainer, never ignored.  ``bench``
+stays with the JAX package for now.
+
+``fit``, ``cv`` and ``sweep`` run over several ranks, one process each,
+started by torchrun (``parallel/distributed.py``)::
+
+    python -m torch.distributed.run --nproc-per-node 2 -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv --mesh-data 2 --device cpu
+    python -m torch.distributed.run --nproc-per-node 2 -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv --mesh-data 2 --device cuda:0 --dist-backend gloo
+    python -m torch.distributed.run --nproc-per-node 8 -m trigenicinteractionpredictor_tpu_torch sweep -f data.tsv --k-grid 5,10,25,50
+
+The first on the CPU, the second with two ranks sharing one card (gloo),
+the third with one card a rank (nccl).  ``fit`` spreads one fit over the
+mesh (``--mesh-data`` defaults to the ranks the other axes leave);
+``cv`` and ``sweep`` give each rank its round-robin share of the units,
+each fit on the rank's own card, then rank 0 merges the report after a
+barrier.  Rank 0 alone writes ``config.json``, the checkpoint, the text
+dump, ``report.json`` and ``events.jsonl``; rank r > 0 logs to
+``events_p{r}.jsonl``.  ``predict`` and ``analyze`` run in one process.
 """
 
 from __future__ import annotations
@@ -68,9 +84,17 @@ def _base_parser(sub: argparse.ArgumentParser) -> None:
         "--device", default="cuda",
         help="torch device: 'cuda' (default; fails without a GPU) or 'cpu'",
     )
-    sub.add_argument("--mesh-data", type=int, default=1, help="data-axis size (1 only)")
-    sub.add_argument("--mesh-ensemble", type=int, default=1, help="(1 only)")
-    sub.add_argument("--mesh-model", type=int, default=1, help="(1 only)")
+    sub.add_argument("--mesh-data", type=int, default=None,
+                     help="data-axis size (default: the ranks ensemble x model leave)")
+    sub.add_argument("--mesh-ensemble", type=int, default=1,
+                     help="ranks the restarts are split over")
+    sub.add_argument("--mesh-model", type=int, default=1,
+                     help="ranks p's l axis is split over (tensor parallelism, large K)")
+    sub.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                     help="process-group backend under torchrun (default: nccl on CUDA, "
+                          "gloo on the CPU; gloo lets ranks share one card)")
+    sub.add_argument("--dist-timeout", type=float, default=1800.0,
+                     help="seconds any collective may wait for the other ranks")
     sub.add_argument(
         "--backend", choices=["auto", "jnp", "pallas"], default="auto",
         help="'jnp': the plain PyTorch sweep on any device; 'auto'/'pallas': "
@@ -135,7 +159,11 @@ def _make_config(args, n_folds: int = 1):
         SplitConfig,
         TrainConfig,
     )
+    from trigenicinteractionpredictor_tpu_torch.parallel.distributed import topology
 
+    ens, model = args.mesh_ensemble, args.mesh_model
+    world = topology().process_count
+    data = args.mesh_data if args.mesh_data is not None else max(world // (ens * model), 1)
     return Config(
         data=DataConfig(
             path=args.file,
@@ -168,8 +196,7 @@ def _make_config(args, n_folds: int = 1):
             init_method=args.init,
         ),
         split=SplitConfig(test_fraction=args.test_fraction, n_folds=n_folds, seed=args.seed),
-        mesh=MeshConfig(data=args.mesh_data, ensemble=args.mesh_ensemble,
-                        model=args.mesh_model),
+        mesh=MeshConfig(data=data, ensemble=ens, model=model),
         engine=EngineConfig(
             backend=args.backend, precision=args.precision, bdr_group=args.bdr_group
         ),
@@ -177,19 +204,42 @@ def _make_config(args, n_folds: int = 1):
     )
 
 
+def _start(args):
+    """Join the ranks of a torchrun launch (a no-op in one process) and
+    resolve this rank's device: ``(topology, device)``."""
+    from datetime import timedelta
+
+    from trigenicinteractionpredictor_tpu_torch.parallel.distributed import (
+        maybe_initialize,
+        rank_device,
+    )
+
+    topo = maybe_initialize(args.device, args.dist_backend,
+                            timeout=timedelta(seconds=args.dist_timeout))
+    return topo, rank_device(args.device)
+
+
+def _rank_file(name: str, rank: int) -> str:
+    """``name`` for rank 0, ``<stem>_p<rank><ext>`` for the others: no two
+    ranks write one file."""
+    stem, ext = os.path.splitext(name)
+    return name if rank == 0 else f"{stem}_p{rank}{ext}"
+
+
 def cmd_fit(args) -> int:
     from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger
     from trigenicinteractionpredictor_tpu_torch.data import train_test_split
-    from trigenicinteractionpredictor_tpu_torch.device import resolve_device
     from trigenicinteractionpredictor_tpu_torch.eval import evaluate
     from trigenicinteractionpredictor_tpu_torch.train.checkpoint import write_text_dump
     from trigenicinteractionpredictor_tpu_torch.train.trainer import fit
 
-    dev = resolve_device(args.device)
+    topo, dev = _start(args)
+    rank = topo.process_index
     cfg = _make_config(args)
     os.makedirs(cfg.out_dir, exist_ok=True)
-    with open(os.path.join(cfg.out_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
+    if topo.is_coordinator:
+        with open(os.path.join(cfg.out_dir, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
     ds = _load_dataset(args.file, cfg)
     train, test = train_test_split(ds, cfg.split.test_fraction, cfg.split.seed)
     prof = contextlib.nullcontext()
@@ -200,7 +250,8 @@ def cmd_fit(args) -> int:
         if dev.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
-    with JsonlLogger(os.path.join(cfg.out_dir, "events.jsonl")) as logger, prof:
+    events = os.path.join(cfg.out_dir, _rank_file("events.jsonl", rank))
+    with JsonlLogger(events) as logger, prof:
         result = fit(
             cfg, train, device=dev, logger=logger,
             checkpoint_path=os.path.join(cfg.out_dir, "model.ckpt.npz"),
@@ -208,7 +259,9 @@ def cmd_fit(args) -> int:
         )
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        prof.export_chrome_trace(os.path.join(args.profile, _rank_file("trace.json", rank)))
+    if not topo.is_coordinator:
+        return 0  # every rank holds the gathered result; rank 0 reports it
     print(json.dumps({"route": result.dispatch.get("kernel"), "stepwise": result.layout}))
     report = evaluate(result.states, test, result.final_loglik)
     write_text_dump(
@@ -228,18 +281,22 @@ def cmd_fit(args) -> int:
 
 
 def _run_grid(args, k_grid: List[int], n_folds: int) -> int:
-    from trigenicinteractionpredictor_tpu_torch.device import resolve_device
+    from trigenicinteractionpredictor_tpu_torch.parallel.distributed import barrier
     from trigenicinteractionpredictor_tpu_torch.train.driver import merge_report, run_units
 
-    dev = resolve_device(args.device)
+    topo, dev = _start(args)
     cfg = _make_config(args, n_folds=n_folds)
     os.makedirs(cfg.out_dir, exist_ok=True)
-    with open(os.path.join(cfg.out_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
+    if topo.is_coordinator:
+        with open(os.path.join(cfg.out_dir, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
     ds = _load_dataset(args.file, cfg)
     run_units(cfg, ds, k_grid=k_grid, device=dev)
-    report = merge_report(cfg.out_dir)
-    print(json.dumps(report["summary"]))
+    # The merge reads every rank's DONE markers: wait for the slowest rank.
+    barrier()
+    if topo.is_coordinator:
+        report = merge_report(cfg.out_dir)
+        print(json.dumps(report["summary"]))
     return 0
 
 
@@ -430,7 +487,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_vp.set_defaults(fn=cmd_verify_parity)
 
     args = parser.parse_args(argv)
-    return args.fn(args)
+    from trigenicinteractionpredictor_tpu_torch.parallel.distributed import shutdown
+
+    try:
+        return args.fn(args)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

@@ -18,11 +18,17 @@ scalar tensor on the device, so a group runs with no host sync.  The
 reference's ``lax.scan`` over the group is a Python loop here: one stats
 call (a kernel route on CUDA) and a few elementwise launches per
 minibatch.
+
+Over a mesh (``mesh``, the reference's ``make_sharded_stepwise_epoch``):
+each rank runs its restarts on its slice of every minibatch, and the
+minibatch's stats and weight sum ``W_mb`` are summed over ``data`` in one
+packed all_reduce, so ``rho`` and ``scale`` come from the global sums and
+every rank along ``data`` holds the same states and EMA.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -32,6 +38,8 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
     SweepStats,
     normalize_from_stats,
 )
+from trigenicinteractionpredictor_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from trigenicinteractionpredictor_tpu_torch.parallel.sharded_em import all_reduce_packed
 
 
 def zero_stats_like(states: ModelState) -> SweepStats:
@@ -54,6 +62,7 @@ def stepwise_group(
     stats_fn: Callable,
     kappa: float,
     t0: float,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[ModelState, SweepStats, torch.Tensor, torch.Tensor]:
     """Run the minibatches of one dispatch group (``batches`` holds a
     leading [n_minibatches] axis) through the update above.
@@ -61,14 +70,21 @@ def stepwise_group(
     Returns ``(states, ema, ll, t)``: ``ll`` [S] is the group's mean of the
     per-minibatch monitor values; ``t`` the float32 counter after the
     group.  ``w_total`` is the whole dataset's weight sum (float32 scalar
-    tensor), so every group scales to full-data statistics.
+    tensor), so every group scales to full-data statistics.  ``mesh``:
+    ``batches`` holds this rank's slice of each minibatch (see the module
+    docstring).
     """
+    group = None if mesh is None else mesh.group(DATA_AXIS)
     lls = []
     for i in range(batches.triplets.shape[0]):
         mb = Batch(batches.triplets[i], batches.ratings[i], batches.weights[i],
                    tile_rating=None if batches.tile_rating is None else batches.tile_rating[i])
         stats = stats_fn(states.theta, states.p, mb)
-        scale = w_total / torch.clamp(mb.weights.sum(), min=1.0)
+        w_mb = mb.weights.sum()
+        if group is not None:
+            *summed, w_mb = all_reduce_packed([*stats, w_mb.reshape(1)], group)
+            stats, w_mb = SweepStats(*summed), w_mb[0]
+        scale = w_total / torch.clamp(w_mb, min=1.0)
         rho = (t0 + t) ** (-kappa)
         ema = SweepStats(
             theta_hat=(1 - rho) * ema.theta_hat + rho * scale * stats.theta_hat,

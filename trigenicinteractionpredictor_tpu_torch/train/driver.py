@@ -10,8 +10,12 @@ per fold by held-out likelihood and writes ``<out>/report.json``.  Unit
 names, marker JSON, event files and the report are the reference's, so
 either package can merge the other's units.
 
-One process only: units fan out across processes with multi-GPU support
-(ROADMAP item 13).
+Across processes (the reference's ``run_units``): units go round-robin by
+rank, and each unit's fit runs on this process's own device (a local
+mesh), since ranks running different units cannot share collectives.  A
+caller that wants every unit spread over all ranks passes a mesh that
+spans them; then every rank runs every unit and the mesh's origin alone
+writes the markers.  Each rank logs to ``<out>/events_p{rank}.jsonl``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from trigenicinteractionpredictor_tpu_torch.data import (
     train_test_split,
 )
 from trigenicinteractionpredictor_tpu_torch.eval import evaluate
+from trigenicinteractionpredictor_tpu_torch.parallel.distributed import topology
+from trigenicinteractionpredictor_tpu_torch.parallel.mesh import Mesh, single_device_mesh
 from trigenicinteractionpredictor_tpu_torch.train.trainer import fit
 from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger
 
@@ -67,25 +73,44 @@ def run_units(
     cfg: Config,
     ds: TripletDataset,
     k_grid: Optional[Sequence[int]] = None,
-    process_index: int = 0,
-    process_count: int = 1,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
     device="cuda",
     stats_fn=None,
+    mesh: Optional[Mesh] = None,
 ) -> List[dict]:
-    """Run the fold x K grid on ``device``; return the unit records (a
-    finished unit's record is read back from its DONE marker)."""
-    if process_count != 1 or process_index != 0:
-        raise NotImplementedError(
-            f"process_count={process_count}: the port's driver runs in one "
-            "process; multi-process units come with multi-GPU support "
-            "(ROADMAP item 13)"
-        )
+    """Run this process's share of the fold x K grid on ``device``; return
+    its unit records (a finished unit's record is read back from its DONE
+    marker).  ``process_index`` / ``process_count`` default to the rank and
+    the world size (see the module docstring for ``mesh``)."""
+    topo = topology()
+    rank = topo.process_index if process_index is None else process_index
+    pi, pc = rank, topo.process_count if process_count is None else process_count
+    writer = True
+    if mesh is not None and mesh.size > 1:
+        pi, pc, writer = 0, 1, mesh.is_coordinator  # every rank runs every unit
+    elif mesh is None and topo.process_count > 1:
+        # One process drives one device: the local mesh keeps cfg.mesh's
+        # ensemble and model axes only if they fit on it (the reference's
+        # driver.py:84-106 and its refusal).
+        local = 1
+        e, m = max(cfg.mesh.ensemble, 1), max(cfg.mesh.model, 1)
+        if local % (e * m) != 0:
+            raise ValueError(
+                f"{local} local devices do not divide by mesh.ensemble*mesh.model="
+                f"{e * m}; fix --mesh-ensemble/--mesh-model or pass an explicit mesh"
+            )
+        mesh = single_device_mesh()
     k_grid = list(k_grid or [cfg.train.k])
     units_dir = os.path.join(cfg.out_dir, "units")
     os.makedirs(units_dir, exist_ok=True)
     records: List[dict] = []
-    with JsonlLogger(os.path.join(cfg.out_dir, f"events_p{process_index}.jsonl")) as logger:
-        for unit in make_work_units(cfg, ds, k_grid):
+    with JsonlLogger(os.path.join(cfg.out_dir, f"events_p{rank}.jsonl")) as logger:
+        if mesh is not None:
+            logger.log("local_mesh", **mesh.shape)
+        for i, unit in enumerate(make_work_units(cfg, ds, k_grid)):
+            if i % pc != pi:
+                continue
             done_path = os.path.join(units_dir, f"{unit.name}.json")
             if os.path.exists(done_path):
                 with open(done_path) as fh:
@@ -98,14 +123,14 @@ def run_units(
             logger.log("unit_start", unit=unit.name, resume=bool(resume))
             result = fit(
                 ucfg, unit.train_ds, device=device, logger=logger, resume=resume,
-                checkpoint_path=ckpt, stats_fn=stats_fn,
+                checkpoint_path=ckpt, stats_fn=stats_fn, mesh=mesh,
             )
             report = evaluate(result.states, unit.test_ds, result.final_loglik)
             rec = {
                 "unit": unit.name,
                 "fold": unit.fold,
                 "k": unit.k,
-                "process": process_index,
+                "process": rank,
                 "sweeps": result.sweeps_run,
                 "triplets_per_sec": result.triplets_per_sec,
                 "ll_best": float(result.final_loglik.max()),
@@ -113,9 +138,10 @@ def run_units(
                 **report.to_dict(),
                 "dispatch": result.dispatch,
             }
-            with open(done_path + ".tmp", "w") as fh:
-                json.dump(rec, fh, indent=2)
-            os.replace(done_path + ".tmp", done_path)  # DONE marker, atomic
+            if writer:
+                with open(done_path + ".tmp", "w") as fh:
+                    json.dump(rec, fh, indent=2)
+                os.replace(done_path + ".tmp", done_path)  # DONE marker, atomic
             logger.log("unit_done", unit=unit.name, auc=report.auc)
             records.append(rec)
     return records

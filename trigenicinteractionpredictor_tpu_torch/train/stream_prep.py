@@ -73,8 +73,14 @@ def _prep_minibatches(ds_arrays, layout: Dict, gperm: np.ndarray) -> Dict[str, n
     """Gather the minibatches covered by ``gperm`` (a slice of the epoch
     permutation, a multiple of ``mb`` rows): {"trip" [g, mb_b, arity],
     "rat" [g, mb_b], "wts" [g, mb_b]}, and with ``rsort`` each minibatch
-    rating-sorted plus "tiler" [g, n_shards * n_tiles]."""
+    rating-sorted plus "tiler" [g, n_shards * n_tiles].  With ``shard`` =
+    (i, count) in the layout, only the i-th of ``count`` contiguous slices
+    of every minibatch (one rank's rows over a data axis)."""
     mb = layout["mb"]
+    take, count = layout.get("shard", (0, 1))
+    if count > 1:
+        mb //= count
+        gperm = gperm.reshape(-1, mb * count)[:, take * mb:(take + 1) * mb].reshape(-1)
     trip, rat, wts = _gather_rows(ds_arrays, layout["n"], gperm)
     g = gperm.size // mb
     arity = trip.shape[-1]
@@ -159,7 +165,8 @@ class StreamPrep:
     arrays ``{"trip", "rat", "wts"}`` (and ``"tiler"`` with ``rsort``) with
     a leading [group] axis.  ``layout`` holds seed, n, n_padded, mb, mb_b,
     group, arity, rsort, n_ratings, tile, n_shards and n_tiles (the
-    reference's keys).
+    reference's keys), and optionally ``shard`` (one rank's slice of every
+    minibatch; ``mb_b`` is then the slice's padded rows).
 
     Modes:
     - in-thread: gather on the calling thread (fresh arrays each call);

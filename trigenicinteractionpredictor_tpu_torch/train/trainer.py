@@ -30,16 +30,36 @@ On CUDA every fit first runs the compute-integrity sentinel
 (``utils/integrity.py``), after the kernel build and before the timed
 window; its verdict is cached, so only a process's first fit pays for it.
 
-Refused: any mesh axis above 1 (``NotImplementedError``); stepwise EM
-together with annealing, refine or split-merge rounds, which the
-reference's stepwise loop skips without a word (``NotImplementedError``);
-the spectral init above ``informed_init.MAX_GENES`` genes (``ValueError``).
+Over a mesh of ranks (``cfg.mesh``, or the ``mesh`` argument; the
+reference's ``train/trainer.py`` with its ``mesh``): every rank calls
+:func:`fit` with the same arguments, draws the same full ``[S, ...]``
+initial states (seeded, spectral, resumed or injected) and keeps its block
+of ``S // ensemble`` restarts; it builds its batch and host plans from its
+own contiguous range of rows and routes with its own restarts and rows
+(the reference's ``n_samples=S // ens_size``, ``n_rows=ceil(N / data)``);
+each sweep's stats are summed over ``data`` (``parallel/sharded_em.py``)
+and normalized with the degrees of the whole split.  The L trace and the
+early stop read the restarts gathered over ``ensemble``, so every rank
+stops at the same sweep.  ``mesh.model > 1`` runs the tensor-parallel
+sweep (``parallel/tensor_parallel.py``, plain PyTorch, recorded as
+``jnp-tp``).  ``fit`` returns the gathered states and ``final_loglik`` on
+every rank, so the split-merge and refine rounds run the same lanes
+everywhere; the rank at the mesh's origin alone writes checkpoints.
+
+Refused: stepwise EM together with annealing, refine or split-merge
+rounds, which the reference's stepwise loop skips without a word
+(``NotImplementedError``); the spectral init above
+``informed_init.MAX_GENES`` genes; and the reference's mesh refusals
+(``ValueError``): samples not divisible by ``mesh.ensemble``, tensor
+parallelism at arity 2, with ``minibatch > 0`` or with K not divisible by
+``mesh.model``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -67,6 +87,7 @@ from trigenicinteractionpredictor_tpu_torch.ops import _build
 from trigenicinteractionpredictor_tpu_torch.ops.dispatch import (
     PLAIN_NAME,
     resolve_stats_fn,
+    route,
     stats_fn_for,
 )
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
@@ -74,7 +95,6 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
     SweepStats,
     log_likelihood,
     make_batch,
-    normalize_from_stats,
 )
 from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import apply_g1_order, make_g1_plan
 from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import make_scatter_plan
@@ -83,6 +103,31 @@ from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (
     rating_sort_pad,
 )
 from trigenicinteractionpredictor_tpu_torch.ops.stepwise import stepwise_group, zero_stats_like
+from trigenicinteractionpredictor_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    ENSEMBLE_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    make_mesh,
+)
+from trigenicinteractionpredictor_tpu_torch.parallel.sharded_em import (
+    all_reduce_packed,
+    any_rank,
+    block,
+    gather_blocks,
+    gather_loglik,
+    gather_states,
+    shard_ensemble,
+    shard_rows,
+    sharded_likelihood,
+    sharded_step,
+)
+from trigenicinteractionpredictor_tpu_torch.parallel.tensor_parallel import (
+    gather_tp_states,
+    shard_tp_state,
+    tp_likelihood,
+    tp_step,
+)
 from trigenicinteractionpredictor_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -132,13 +177,6 @@ def _anneal_schedule(tcfg) -> Optional[np.ndarray]:
 
 def _check_scope(cfg: Config, n_genes: int) -> None:
     tcfg = cfg.train
-    missing = [f"mesh.{axis}={getattr(cfg.mesh, axis)} (one device only)"
-               for axis in ("data", "ensemble", "model") if getattr(cfg.mesh, axis) > 1]
-    if missing:
-        raise NotImplementedError(
-            "not ported to the PyTorch engine yet: " + ", ".join(missing)
-            + "; the JAX package (trigenicinteractionpredictor_tpu) runs them"
-        )
     if tcfg.minibatch > 0:
         # The reference's stepwise loop returns before any of these runs, so
         # it ignores them without a word; the port refuses instead.
@@ -205,6 +243,22 @@ def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
     return make_batch(trip, rat, w, dev)
 
 
+TP_NAME = "jnp-tp"  # the dispatch record of the tensor-parallel sweep (the reference's)
+
+
+def _check_tp(cfg: Config, arity: int, model: int) -> None:
+    """The reference's refusals of tensor parallelism (``ValueError``)."""
+    if arity != 3:
+        raise ValueError("tensor parallelism is trigenic-only (p is K^3)")
+    if cfg.train.minibatch > 0:
+        raise ValueError(
+            "stepwise EM does not compose with tensor parallelism; "
+            "use mesh.model=1 for minibatch mode"
+        )
+    if cfg.train.k % model != 0:
+        raise ValueError(f"k={cfg.train.k} must divide by the model axis {model}")
+
+
 def fit(
     cfg: Config,
     train_ds: TripletDataset,
@@ -214,6 +268,7 @@ def fit(
     checkpoint_path: Optional[str] = None,
     stats_fn=None,
     init_states: Optional[ModelState] = None,
+    mesh: Optional[Mesh] = None,
 ) -> FitResult:
     """Fit ``cfg.train.samples`` restarts of the MMSBM on a training split.
 
@@ -222,6 +277,8 @@ def fit(
     ``init_states`` -- restart-stacked [S, ...] initial states (tensors or
     arrays, e.g. the JAX package's) instead of the seeded random or
     spectral init (the refine and split-merge rounds pass theirs).
+    ``mesh`` -- the mesh of ranks (default: ``cfg.mesh`` over the ranks of
+    the default process group, ``parallel/mesh.make_mesh``).
     """
     _check_scope(cfg, train_ds.n_genes)
     log = logger or get_logger()
@@ -231,16 +288,35 @@ def fit(
         raise ValueError(
             f"unknown engine precision {cfg.engine.precision!r}; use 'fast' or 'strict'"
         )
+    if mesh is None:
+        mesh = make_mesh(data=cfg.mesh.data, ensemble=cfg.mesh.ensemble, model=cfg.mesh.model)
+    data_size, ens_size, model_size = (mesh.shape[a] for a in (DATA_AXIS, ENSEMBLE_AXIS,
+                                                               MODEL_AXIS))
     S, K = tcfg.samples, tcfg.k
+    if S % ens_size != 0:
+        raise ValueError(f"samples={S} must divide by ensemble axis {ens_size}")
     G, R, arity = train_ds.n_genes, train_ds.n_ratings, train_ds.arity
     _check_ids(train_ds)
     stepwise = tcfg.minibatch > 0
+    use_tp = model_size > 1
+    if use_tp:
+        _check_tp(cfg, arity, model_size)
+    # Route with what one rank holds: its restarts and its rows.
+    s_local, rows_local = S // ens_size, -(-train_ds.n_rows // data_size)
 
-    if stats_fn is None:
+    if use_tp:
+        stats_fn = None
+        log.log("backend", kernel=TP_NAME, model_shards=model_size)
+        kernel = route(dev.type, arity, K, R, s_local, G, n_rows=rows_local)
+        if kernel != PLAIN_NAME:
+            log.log("backend_warning", message=(
+                f"mesh.model > 1 deselects the CUDA kernel ({kernel}): the tensor-parallel "
+                "sweep is plain PyTorch, a memory feature for p and its stats past one "
+                "card's memory, not a speed feature"))
+    elif stats_fn is None:
         stats_fn = resolve_stats_fn(
-            dev, arity, G, K, S, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk,
-            backend=cfg.engine.backend, n_rows=train_ds.n_rows,
-            static_rows=not stepwise,
+            dev, arity, G, K, s_local, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk,
+            backend=cfg.engine.backend, n_rows=rows_local, static_rows=not stepwise,
         )
     if stepwise and (getattr(stats_fn, "needs_plan", False)
                      or getattr(stats_fn, "needs_g1plan", False)):
@@ -251,8 +327,9 @@ def fit(
     # Both engine precision modes run exact float32 here: the kernels use
     # no tensor cores and the plain path runs with TF32 off.
     dispatch_info = {
-        "kernel": getattr(stats_fn, "kernel_name", None)
-        or getattr(stats_fn, "__name__", type(stats_fn).__name__),
+        "kernel": TP_NAME if use_tp else (
+            getattr(stats_fn, "kernel_name", None)
+            or getattr(stats_fn, "__name__", type(stats_fn).__name__)),
         "tile_b": int(getattr(stats_fn, "tile_b", 0) or 0),
         "bdr_group": 0,
         "row_chunk": int(getattr(stats_fn, "row_chunk", 0)),
@@ -281,6 +358,9 @@ def fit(
         return init_state(G, K, R, alpha=tcfg.init_alpha, arity=arity, samples=S,
                           seed=tcfg.seed, device=dev)
 
+    # Every rank draws (or reads) the same full [S, ...] states, then keeps
+    # its block: a per-rank draw would make the mesh fit differ from the
+    # one-process fit.
     start_sweep = 0
     ll_rows: List[np.ndarray] = []
     resume_extra: dict = {}
@@ -302,6 +382,12 @@ def fit(
             f"initial states {tuple(states.theta.shape)} / arity {states.arity} "
             f"do not match samples, genes, k = {want} / arity {arity}"
         )
+    shard, gather = ((shard_tp_state, gather_tp_states) if use_tp
+                     else (shard_ensemble, gather_states))
+    states = shard(states, mesh)
+    lo, hi = shard_rows(train_ds.n_rows, mesh)
+    if mesh.distributed:
+        log.log("shard", rows=hi - lo, first_row=lo, samples=s_local, **mesh.coords)
 
     if stepwise:
         carry = None
@@ -316,16 +402,24 @@ def fit(
                 # A checkpoint without the EMA carry: start afresh (logged),
                 # as the reference does, so a relaunched driver unit runs.
                 log.log("stepwise_restart", ignored_resume=resume)
-                states, start_sweep, ll_rows = fresh_states(), 0, []
+                states, start_sweep, ll_rows = shard(fresh_states(), mesh), 0, []
         return _run_stepwise(
-            cfg, train_ds, states, stats_fn, dev, log, checkpoint_path,
+            cfg, train_ds, states, stats_fn, dev, log, checkpoint_path, mesh,
             start_epoch=start_sweep, ll_rows=ll_rows, carry=carry,
             dispatch_info=dispatch_info,
         )
 
-    batch = _make_fit_batch(train_ds, stats_fn, dev, log)
+    shard_ds = train_ds if (lo, hi) == (0, train_ds.n_rows) else train_ds.select(slice(lo, hi))
+    if use_tp:
+        batch = make_batch(shard_ds.triplets, shard_ds.ratings, shard_ds.weights, dev)
+    else:
+        batch = _make_fit_batch(shard_ds, stats_fn, dev, log)
+    del shard_ds
+    # The degrees of the whole split, on every rank: normalizing with a
+    # shard's own degrees would be wrong for every gene the shard sees less.
     degrees = torch.as_tensor(train_ds.degrees(), device=dev)
     n_real = train_ds.n_real
+    row_chunk = cfg.engine.jnp_row_chunk
     config_json = cfg.to_json()
     # Provenance of the init: the seed in the reference's key-data layout.
     key_data = np.asarray([(tcfg.seed >> 32) & 0xFFFFFFFF, tcfg.seed & 0xFFFFFFFF],
@@ -339,30 +433,31 @@ def fit(
             b = min(b, (s // ce + 1) * ce)
         return b
 
-    def checkpoint(at_sweep: int) -> None:
-        save_checkpoint(
-            checkpoint_path, states, at_sweep,
-            np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
-            key=key_data, config_json=config_json,
-            extra=_dispatch_extra(dispatch_info),
-        )
+    def checkpoint(full: ModelState, at_sweep: int) -> None:
+        if mesh.is_coordinator:  # one writer
+            save_checkpoint(
+                checkpoint_path, full, at_sweep,
+                np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
+                key=key_data, config_json=config_json,
+                extra=_dispatch_extra(dispatch_info),
+            )
 
     # DAEM: while sweep < anneal_end, the sweep's stats come from the
     # powered parameters, written into buffers allocated once per fit.
     betas = _anneal_schedule(tcfg)
     anneal_end = 0 if betas is None else (tcfg.anneal_sweeps or max(tcfg.sweeps // 2, 1))
-    powered = None
+    buffers = None
     if betas is not None:
         log.log("anneal", beta0=tcfg.anneal_beta0, ramp_sweeps=anneal_end)
-        powered = (torch.empty_like(states.theta), torch.empty_like(states.p))
+        buffers = (torch.empty_like(states.theta), torch.empty_like(states.p))
 
-    def sweep_stats(at: int) -> SweepStats:
-        if at >= anneal_end:
-            return stats_fn(states.theta, states.p, batch)
-        beta = float(betas[at]) if at < len(betas) else 1.0
-        torch.pow(states.theta, beta, out=powered[0])
-        torch.pow(states.p, beta, out=powered[1])
-        return stats_fn(powered[0], powered[1], batch)
+    def sweep_once(states: ModelState, at: int):
+        beta = None
+        if at < anneal_end:
+            beta = float(betas[at]) if at < len(betas) else 1.0
+        if use_tp:
+            return tp_step(states, batch, degrees, mesh, beta, row_chunk, buffers)
+        return sharded_step(states, batch, degrees, mesh, stats_fn, beta, buffers)
 
     prev_check: Optional[np.ndarray] = None
     pending: Optional[Tuple[int, torch.Tensor]] = None
@@ -374,7 +469,8 @@ def fit(
             return False
         at_sweep, ll = pending
         pending = None
-        ll_np = ll.cpu().numpy().astype(np.float64)  # L of the pre-update state
+        # L of the pre-update state, every restart of the mesh.
+        ll_np = gather_loglik(ll, mesh).cpu().numpy().astype(np.float64)
         ll_rows.append(ll_np)
         dt = time.perf_counter() - t0
         log.log(
@@ -390,7 +486,9 @@ def fit(
         if tcfg.tol > 0 and prev_check is not None and at_sweep >= anneal_end + 2 * freq:
             if np.all(np.abs(ll_np - prev_check) < tcfg.tol):
                 halt = True
-                log.log("early_stop", sweep=at_sweep, tol=tcfg.tol)
+        halt = any_rank(halt, mesh, dev)
+        if halt:
+            log.log("early_stop", sweep=at_sweep, tol=tcfg.tol)
         prev_check = ll_np
         return halt
 
@@ -399,9 +497,7 @@ def fit(
     while sweep < tcfg.sweeps and not stop:
         n_inner = next_boundary(sweep) - sweep
         for i in range(n_inner):
-            stats = sweep_stats(sweep + i)
-            # The unpowered carry: zero-mass cells and untrained genes keep it.
-            states = normalize_from_stats(states, stats, degrees)
+            states, ll = sweep_once(states, sweep + i)
         if tcfg.debug_nans and not (
             torch.isfinite(states.theta).all() and torch.isfinite(states.p).all()
         ):
@@ -409,20 +505,20 @@ def fit(
         sweep += n_inner
         stop = flush_pending()  # the previous check syncs while this chunk runs
         if sweep % freq == 0 or sweep == tcfg.sweeps:
-            pending = (sweep, stats.loglik)
+            pending = (sweep, ll)
         if ce > 0 and sweep % ce == 0:
             stop = flush_pending() or stop  # keep the trace ordered
-            checkpoint(sweep)
+            checkpoint(gather(states, mesh), sweep)
     stop = flush_pending() or stop
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    final_ll = (
-        log_likelihood(states, batch, row_chunk=cfg.engine.jnp_row_chunk)
-        .cpu().numpy().astype(np.float64)
-    )
-    del batch, powered  # the rounds' sub-fits build their own
+    final_ll = (tp_likelihood(states, batch, mesh, row_chunk) if use_tp
+                else sharded_likelihood(states, batch, mesh, row_chunk))
+    final_ll = gather_loglik(final_ll, mesh).cpu().numpy().astype(np.float64)
+    states = gather(states, mesh)
+    del batch, buffers  # the rounds' sub-fits build their own
 
     # Split-merge topology jumps first, perturb-and-resweep polish after
     # (the reference's order); each adds its sub-fits' sweeps, wall time
@@ -430,7 +526,7 @@ def fit(
     for rounds, stage in ((tcfg.smem_rounds, _smem), (tcfg.refine_rounds, _refine)):
         if rounds > 0:
             states, final_ll, extra = stage(cfg, train_ds, dev, log, states, final_ll,
-                                            stats_fn)
+                                            stats_fn, mesh)
             sweep += extra["sweeps"]
             wall += extra["wall"]
             ll_rows.extend(extra["ll_rows"])
@@ -441,7 +537,7 @@ def fit(
         ll_best=float(final_ll.max()),
     )
     if checkpoint_path:
-        checkpoint(sweep)
+        checkpoint(states, sweep)
     return FitResult(
         states=states,
         final_loglik=final_ll,
@@ -468,8 +564,8 @@ def _patch_worst_lane(cur_theta, cur_p, cur_ll, res: FitResult, lane: int):
     return cur_theta, cur_p, cur_ll
 
 
-def _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn, *, name, rounds,
-                    sweeps, seed_step, propose):
+def _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn, mesh, *, name,
+                    rounds, sweeps, seed_step, propose):
     """The loop the refine and split-merge stages share (the reference's
     ``_refine`` / ``_smem`` bodies).  Each round re-seeds all S lanes from
     the current best state: lane 0 keeps it unperturbed, ``propose(th_b,
@@ -498,7 +594,7 @@ def _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn, *, name
             moves.append(mv)
         log.log(name, round=rnd, from_ll=float(cur_ll.max()), sweeps=sweeps)
         res = fit(sub_cfg, train_ds, device=dev, logger=log, stats_fn=stats_fn,
-                  init_states=ModelState(theta=thetas, p=ps))
+                  init_states=ModelState(theta=thetas, p=ps), mesh=mesh)
         extra["sweeps"] += res.sweeps_run
         extra["wall"] += res.wall_seconds
         extra["ll_rows"].extend(list(res.ll_trace))
@@ -516,7 +612,7 @@ def _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn, *, name
     return state_from_numpy(cur_theta, cur_p, dev), cur_ll, extra
 
 
-def _refine(cfg, train_ds, dev, log, states, final_ll, stats_fn):
+def _refine(cfg, train_ds, dev, log, states, final_ll, stats_fn, mesh):
     """Perturb-and-resweep refinement (``TrainConfig.refine_rounds``): lanes
     1..S-1 mix the best state with Dirichlet(1) noise at graded strengths
     around ``refine_eps`` (the reference's ``_refine``)."""
@@ -535,13 +631,13 @@ def _refine(cfg, train_ds, dev, log, states, final_ll, stats_fn):
         pp = (1 - eps) * p_b + eps * rng.dirichlet(np.ones(R), size=(K,) * arity)
         return th, pp, None
 
-    return _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn,
+    return _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn, mesh,
                            name="refine", rounds=tcfg.refine_rounds,
                            sweeps=tcfg.refine_sweeps or max(tcfg.sweeps // 4, 1),
                            seed_step=7717, propose=propose)
 
 
-def _smem(cfg, train_ds, dev, log, states, final_ll, stats_fn):
+def _smem(cfg, train_ds, dev, log, states, final_ll, stats_fn, mesh):
     """Split-merge EM rounds (``TrainConfig.smem_rounds``): lanes 1..S-1
     each get an independent merge + split topology jump
     (``models/proposals.py``; the reference's ``_smem``)."""
@@ -552,7 +648,7 @@ def _smem(cfg, train_ds, dev, log, states, final_ll, stats_fn):
         reason = f"needs K >= 3, got {K}" if K < 3 else f"needs samples >= 2, got {S}"
         log.log("smem_skipped", reason=reason)
         return states, np.asarray(final_ll), {"sweeps": 0, "wall": 0.0, "ll_rows": []}
-    return _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn,
+    return _resweep_rounds(cfg, train_ds, dev, log, states, final_ll, stats_fn, mesh,
                            name="smem", rounds=tcfg.smem_rounds,
                            sweeps=tcfg.smem_sweeps or max(tcfg.sweeps // 4, 1),
                            seed_step=9091,
@@ -637,6 +733,7 @@ def _run_stepwise(
     dev: torch.device,
     log,
     checkpoint_path: Optional[str],
+    mesh: Mesh,
     start_epoch: int = 0,
     ll_rows: Optional[List[np.ndarray]] = None,
     carry: Optional[Tuple[SweepStats, float]] = None,
@@ -659,9 +756,20 @@ def _run_stepwise(
     statistics and the update counter in ``extra``, so a resumed run
     replays exactly.  The final L streams through contiguous windows of one
     group's rows.
+
+    Over a mesh (the reference's ``make_sharded_stepwise_epoch`` and its
+    ``_run_stepwise``): ``states`` and the EMA carry are this rank's block
+    of restarts; every rank preps each whole group from the (seed, epoch)
+    shuffle and keeps its contiguous slice of each minibatch (``P(None,
+    DATA_AXIS)``; with the rating sort, the per-shard layout of
+    ``n_shards = data``); ``ops/stepwise.py`` sums each minibatch's stats
+    and weight over ``data``.  The trace and the early stop read the
+    gathered restarts, the final L sums the ranks' row ranges, and the
+    mesh's origin writes the checkpoints of the gathered states and EMA.
     """
     tcfg = cfg.train
-    pad = max(cfg.engine.batch_pad_multiple, 1)
+    data_size = mesh.shape[DATA_AXIS]
+    pad = math.lcm(max(cfg.engine.batch_pad_multiple, 1), data_size)
     mb = -(-tcfg.minibatch // pad) * pad
     ds = train_ds
     n = ds.n_rows
@@ -683,7 +791,6 @@ def _run_stepwise(
     # padding is weight 0.
     rsort = getattr(stats_fn, "needs_rsort", False)
     tile = ft = 0
-    mb_b = mb
     if rsort:
         tile = getattr(stats_fn, "tile_b", 0)
         if not tile:
@@ -693,22 +800,26 @@ def _run_stepwise(
                 "and needs the tile size (attach fn.tile_b, or use "
                 "ops.em_rsorted.stats_fn)"
             )
-        if mb % tile:
+        if (mb // data_size) % tile:
             raise ValueError(f"tile_b={tile} does not divide the padded minibatch of "
-                             f"{mb} rows (minibatch={tcfg.minibatch})")
-        ft = mb // tile + ds.n_ratings
-        mb_b = ft * tile
+                             f"{mb} rows (minibatch={tcfg.minibatch}) split over "
+                             f"{data_size} data rank(s)")
+        ft = mb // data_size // tile + ds.n_ratings
+    # Each rank preps its own slice of every minibatch (one shard of the
+    # reference's layout: rows_b padded rows, ft tiles with the sort).
+    rows_b = ft * tile if rsort else mb // data_size
     stream_prep = StreamPrep(
         ds,
-        layout={"seed": tcfg.seed, "n": n, "n_padded": n_padded, "mb": mb, "mb_b": mb_b,
+        layout={"seed": tcfg.seed, "n": n, "n_padded": n_padded, "mb": mb, "mb_b": rows_b,
                 "group": group, "arity": ds.arity, "rsort": rsort,
-                "n_ratings": ds.n_ratings, "tile": tile, "n_shards": 1, "n_tiles": ft},
+                "n_ratings": ds.n_ratings, "tile": tile, "n_shards": 1, "n_tiles": ft,
+                "shard": (mesh.index(DATA_AXIS), data_size)},
         workers=tcfg.stream_prep_workers,
     )
     layout = {"minibatch": mb, "n_minibatches": n_mb,
               "stream_groups": group if n_dispatch > 1 else 0,
               "padded_rows": n_padded, "prep_workers": stream_prep.workers,
-              "rsort_padded_mb": mb_b if rsort else 0}
+              "rsort_padded_mb": rows_b * data_size if rsort else 0}
     log.log("stepwise", kappa=tcfg.stepwise_kappa, t0=tcfg.stepwise_t0,
             prefetch=tcfg.stream_prefetch, pool_error=stream_prep.pool_error, **layout)
 
@@ -716,13 +827,15 @@ def _run_stepwise(
     n_real = ds.n_real
     w_total = torch.tensor(np.float32(ds.weight_total()), device=dev)
     if carry is not None:
-        ema, t = carry[0], torch.tensor(carry[1], dtype=torch.float32, device=dev)
+        full = carry[0]
+        ema = SweepStats(*(block(x, mesh, ENSEMBLE_AXIS) for x in full))
+        t = torch.tensor(carry[1], dtype=torch.float32, device=dev)
         log.log("stepwise_resume", epoch=start_epoch, t=float(carry[1]))
     else:
         ema = zero_stats_like(states)
         t = torch.zeros((), dtype=torch.float32, device=dev)
     config_json = cfg.to_json()
-    S = states.theta.shape[0]
+    S = tcfg.samples
     ce = tcfg.checkpoint_every if checkpoint_path else 0
     freq = max(tcfg.likelihood_freq, 1)
     ll_rows = list(ll_rows or [])
@@ -736,12 +849,16 @@ def _run_stepwise(
         return stager.put(stream_prep.prep_group(ep, d))
 
     def checkpoint() -> None:
+        full, ema_full = gather_states(states, mesh), [gather_blocks(x, mesh, ENSEMBLE_AXIS)
+                                                       for x in ema]
+        if not mesh.is_coordinator:  # one writer
+            return
         save_checkpoint(
-            checkpoint_path, states, epoch,
+            checkpoint_path, full, epoch,
             np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
             config_json=config_json,
-            extra={"ema_theta_hat": ema.theta_hat, "ema_p_hat": ema.p_hat,
-                   "ema_loglik": ema.loglik,
+            extra={"ema_theta_hat": ema_full[0], "ema_p_hat": ema_full[1],
+                   "ema_loglik": ema_full[2],
                    "stepwise_t": np.asarray(t.item(), dtype=np.float32),
                    **_dispatch_extra(dispatch_info or {})},
         )
@@ -768,7 +885,7 @@ def _run_stepwise(
                 stager.ready(copied)
                 states, ema, ll_g, t = stepwise_group(
                     states, ema, t, batches, degrees, w_total, stats_fn,
-                    kappa=tcfg.stepwise_kappa, t0=tcfg.stepwise_t0,
+                    kappa=tcfg.stepwise_kappa, t0=tcfg.stepwise_t0, mesh=mesh,
                 )
                 del batches
                 stager.consumed()
@@ -781,7 +898,7 @@ def _run_stepwise(
             ll = torch.stack(ll_groups).mean(0)
             epoch += 1
             if epoch % freq == 0 or epoch == tcfg.sweeps:
-                ll_np = ll.cpu().numpy().astype(np.float64)
+                ll_np = gather_loglik(ll, mesh).cpu().numpy().astype(np.float64)
                 ll_rows.append(ll_np)
                 dt = time.perf_counter() - t0_wall
                 log.log(
@@ -789,10 +906,11 @@ def _run_stepwise(
                     ll_mean=float(ll_np.mean()),
                     triplets_per_sec=epoch * n_real / max(dt, 1e-9),
                 )
-                if tcfg.tol > 0 and prev_check is not None:
-                    if np.all(np.abs(ll_np - prev_check) < tcfg.tol):
-                        stop = True
-                        log.log("early_stop", epoch=epoch, tol=tcfg.tol)
+                stop = any_rank(tcfg.tol > 0 and prev_check is not None
+                                and bool(np.all(np.abs(ll_np - prev_check) < tcfg.tol)),
+                                mesh, dev)
+                if stop:
+                    log.log("early_stop", epoch=epoch, tol=tcfg.tol)
                 prev_check = ll_np
             if ce > 0 and epoch % ce == 0:
                 checkpoint()
@@ -804,22 +922,27 @@ def _run_stepwise(
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0_wall
     # Final full-data L over contiguous windows of one group's rows (L is
-    # additive over rows), so the device never holds more than a group.
+    # additive over rows), so the device never holds more than a group;
+    # each rank sums its range of rows, then the ranks' sums are added.
     window = group * mb
-    final_ll = np.zeros(S, dtype=np.float64)
-    for lo in range(0, n, window):
-        hi = min(lo + window, n)
+    final_ll = np.zeros(states.theta.shape[0], dtype=np.float64)
+    first, last = shard_rows(n, mesh)
+    for lo in range(first, last, window):
+        hi = min(lo + window, last)
         wb = make_batch(*(np.array(a[lo:hi]) for a in (ds.triplets, ds.ratings, ds.weights)),
                         dev)
         final_ll += (log_likelihood(states, wb, row_chunk=cfg.engine.jnp_row_chunk)
                      .cpu().numpy().astype(np.float64))
+    final_ll = all_reduce_packed([torch.as_tensor(final_ll, device=dev)],
+                                 mesh.group(DATA_AXIS))[0]
+    final_ll = gather_loglik(final_ll, mesh).cpu().numpy()
     tps = (epoch - start_epoch) * n_real / max(wall, 1e-9)
     log.log("fit_done", sweeps=epoch, wall_s=wall, triplets_per_sec=tps,
             ll_best=float(final_ll.max()), mode="stepwise")
     if checkpoint_path and epoch > start_epoch:
         checkpoint()
     return FitResult(
-        states=states,
+        states=gather_states(states, mesh),
         final_loglik=final_ll,
         ll_trace=np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
         sweeps_run=epoch,
