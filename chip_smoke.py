@@ -102,7 +102,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                records within 1e-5 of the one-process job); 12f phase 9b's
                stepwise fit over ``data 2`` (K7; final L within 1e-4 of the
                one-process fit).  The ranks share one card, so these runs
-               check the code across ranks, not scaling over GPUs.
+               check the code across ranks, not scaling over GPUs;
+13. the bench entry point (``bench.py``, ``bench_quality.py``), each run
+               with the counts set to 0 just before and read just after:
+               13a ``bench`` through the CLI at the headline shape, in
+               process (the reference's metric line, ``vs_baseline >= 100``
+               against ``baselines/python_reference.py``, route
+               cuda-em-sweep at S = 1 and 10, K1 launched 2 x (10 + 3 x 120)
+               times and nothing else, the S = 1 datapoint and sweeps/s beside
+               phase 6's fit); 13b ``bench --serve`` (K2 launched 1 + 3 x 20
+               times, the timed output within SCORE_ATOL of the plain
+               scorer); 13c ``bench.measure_engine`` at the args of the
+               throughput records of ``tests/perf_records.json``
+               (large_k50_s10, large_g100k_s10, wide_s50_k10,
+               bd_plan_wide_s50_g10k): the route at each S and every kernel
+               it names launched once a sweep; 13d ``bench_quality`` at both
+               quality records, held to their AUC band, sweeps slack and
+               chance floor (seconds are the card's own, held to nothing),
+               then the same loop from ``fit``'s own numpy draw (seed 0),
+               held to the AUC band and chance floor.  After each run of
+               13a and 13c, at each S, and for 13d's first step: one chained
+               step from the run's initial states through the routed and the
+               plain sweep, each on its own fit batch of the same rows,
+               theta and p within STATS_REL_TOL, every L within LOGLIK_RTOL.
 
 The line before the last holds the kernels' record as JSON (``launches``
 sums the counted paths that run the kernel; ``bound_ms`` is the larger of
@@ -1455,6 +1477,205 @@ def distributed_phase(card: str, dev, cli_main, train, k1_fit) -> dict:
     return launched
 
 
+# Phase 13: the records of tests/perf_records.json that 13c runs, and the
+# route each S must take there (ops/dispatch.py::route at that shape).
+BENCH_RECORDS = {
+    "large_k50_s10": ("cuda-em-sweep-large-k", "cuda-em-sweep-large-k"),
+    "large_g100k_s10": ("cuda-em-large-g", "cuda-em-bdg"),
+    "wide_s50_k10": ("cuda-em-sweep", "cuda-em-sweep"),
+    "bd_plan_wide_s50_g10k": ("cuda-em-sweep", "cuda-em-bdg"),
+}
+BENCH_HEADLINE_LAUNCHES = 2 * (10 + 3 * 120)  # S = 1 and S = 10: first step + 3 reps
+
+
+def _check_engine_step(tag: str, ds, states0, route: str, n_inner: int = 10) -> None:
+    """One chained step of the bench (``n_inner`` sweeps from ``states0``)
+    through the routed stats function and through the plain one, each on
+    its own fit batch of ``ds``'s rows: theta and p held to STATS_REL_TOL
+    (max abs err / max |plain|), every L of the step to LOGLIK_RTOL."""
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch.bench import make_engine_step
+    from trigenicinteractionpredictor_tpu_torch.ops import dispatch
+
+    dev = states0.theta.device
+    s, g, k = states0.theta.shape
+    routed = dispatch.resolve_stats_fn(dev, 3, g, k, s, n_rows=ds.n_rows)
+    assert routed.kernel_name == route, (tag, s, routed.kernel_name, route)
+    # Row chunks bound the plain sweep's [S, rows, K^2 R] intermediates.
+    chunk = 4096 if k > 20 else max(4096, 1_310_720 // s)
+    plain = dispatch.stats_fn_for(dispatch.PLAIN_NAME, k, 2, row_chunk=chunk)
+    got, ll = make_engine_step(ds, routed, dev, n_inner)(states0)
+    want, ll_want = make_engine_step(ds, plain, dev, n_inner)(states0)
+    errs = {}
+    for name, a, b in (("theta", got.theta, want.theta), ("p", got.p, want.p)):
+        errs[name] = float((a - b).abs().max()) / float(b.abs().max())
+        assert torch.isfinite(a).all() and errs[name] <= STATS_REL_TOL, (tag, s, name, errs)
+    ll_rel = float(((ll - ll_want).abs() / ll_want.abs()).max())
+    print(f"[{tag}] S={s} route {route}: one step ({n_inner} sweeps) vs plain: theta "
+          f"{errs['theta']:.3e}, p {errs['p']:.3e} max abs err / max|plain| (tol "
+          f"{STATS_REL_TOL:g}); L max rel err {ll_rel:.3e} (tol {LOGLIK_RTOL:g})")
+    assert torch.isfinite(ll).all() and ll_rel <= LOGLIK_RTOL, (tag, s, ll_rel)
+    del got, want, ll, ll_want
+    torch.cuda.empty_cache()
+
+
+def _check_bench_steps(tag: str, args, routes) -> None:
+    """:func:`_check_engine_step` at each S ``bench.measure_engine`` ran
+    (1, then ``args.samples``), from its rows and initial states."""
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch import bench
+    from trigenicinteractionpredictor_tpu_torch.data.synthetic import sample_synthetic_dataset
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+
+    dev = torch.device("cuda")
+    ds, _, _ = sample_synthetic_dataset(args.n, args.genes, args.k, n_ratings=bench.R, seed=0)
+    for s, route in zip((1, args.samples), routes):
+        _check_engine_step(tag, ds, init_state(args.genes, args.k, bench.R, samples=s,
+                                               seed=0, device=dev), route)
+
+
+def bench_phase(card: str, here: str, cli_main, fit_sweeps_per_s: float) -> dict:
+    """Phase 13 (see the module docstring); returns the phase's main-path
+    launches by kernel name."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch import bench, bench_quality
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+    from trigenicinteractionpredictor_tpu_torch.models.threefry import reference_init_states
+    from trigenicinteractionpredictor_tpu_torch.ops import em_bdr, score
+
+    t_phase = time.perf_counter()
+    counters = _launch_counters()
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    with open(os.path.join(here, "tests", "perf_records.json")) as fh:
+        records = json.load(fh)
+    total = dict.fromkeys(counters, 0)
+
+    # 13a. the headline bench through the CLI, in process
+    zero()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert cli_main(["bench"]) == 0
+    wall = time.perf_counter() - t0
+    grew = read()
+    for line in err.getvalue().splitlines():
+        print(f"[13a] {line}")
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"[13a] {json.dumps(line)} ({card}; command {wall:.2f} s)")
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}, line
+    assert line["metric"] == "em_restart_triplet_updates_per_sec_per_chip", line
+    assert line["unit"] == "triplets/s" and line["vs_baseline"] >= 100, line
+    routes = dict(re.findall(r"^S=(\d+) route (\S+): first step", err.getvalue(), re.M))
+    assert routes == {"1": em_bdr.KERNEL_NAME, "10": em_bdr.KERNEL_NAME}, routes
+    assert grew[em_bdr.KERNEL_NAME] == BENCH_HEADLINE_LAUNCHES, grew
+    assert sum(grew.values()) == BENCH_HEADLINE_LAUNCHES, grew
+    s1 = float(re.search(r"^S=1 route .* -> (\S+) restart-triplet", err.getvalue(), re.M)[1])
+    print(f"[13a] S=10: {line['value']:.6e} restart-triplet updates/s, "
+          f"{line['value'] / (131_072 * 10):.2f} sweeps/s (phase 6's fit "
+          f"{fit_sweeps_per_s:.2f} sweeps/s); S=1: {s1:.6e} updates/s, "
+          f"{s1 / 131_072:.2f} sweeps/s; K1 launches {grew[em_bdr.KERNEL_NAME]} ({card})")
+    total = {k: total[k] + grew[k] for k in total}
+    _check_bench_steps("13a", bench.parse_args([]), (em_bdr.KERNEL_NAME,) * 2)
+
+    # 13b. --serve at the headline shape: the timed scorer against the plain one
+    zero()
+    run = bench.measure_serving(bench.parse_args(["--serve"]))
+    grew = read()
+    want = score.ensemble_score_reference(run.states.theta, run.states.p, run.triplets)
+    err_abs = float((run.scores - want).abs().max())
+    print(f"[13b] route {run.route}: {run.ms:.4f} ms a call, {run.rows_per_sec:.6e} rows/s "
+          f"(131072 rows, S=10); launches {grew[score.KERNEL_NAME]}; timed scorer vs plain "
+          f"max abs err {err_abs:.3e} (tol {SCORE_ATOL:g}) ({card})")
+    assert run.route == score.KERNEL_NAME, run.route
+    assert grew[score.KERNEL_NAME] == 1 + 3 * 20 and sum(grew.values()) == 1 + 3 * 20, grew
+    assert torch.isfinite(run.scores).all() and err_abs <= SCORE_ATOL
+    total = {k: total[k] + grew[k] for k in total}
+    del run, want
+
+    # 13c. the engine at the other throughput records' args (no baseline)
+    for name, want_routes in BENCH_RECORDS.items():
+        rec = records["records"][name]
+        zero()
+        args = bench.parse_args(rec["args"] + ["--device", "cuda"])
+        runs = bench.measure_engine(args)
+        grew = read()
+        for r, want_route in zip(runs, want_routes):
+            print(f"[13c] {name} (n={rec['n']}, g={rec['g']}, k={rec['k']}) S={r.samples}: "
+                  f"route {r.route}, {r.updates_per_sec:.6e} restart-triplet updates/s, "
+                  f"{r.sweeps} sweeps in {r.seconds:.6f} s (best of 3), launches "
+                  f"{r.launches} ({card})")
+            assert r.route == want_route and r.launches, (name, r.samples, r.route)
+        assert sum(grew.values()) == sum(sum(r.launches.values()) for r in runs), grew
+        total = {k: total[k] + grew[k] for k in total}
+        del runs
+        torch.cuda.empty_cache()
+        _check_bench_steps(f"13c {name}", args, want_routes)
+
+    # 13d. time to converged AUC at both quality records, held to their bands
+    for name in ("default", "recoverable"):
+        rec = records["quality"][name]
+        args = bench_quality.parse_args(rec["args"] + ["--device", "cuda"])
+        sweeps = args.max_sweeps // args.freq * args.freq
+        zero()
+        res = bench_quality.measure(args)
+        grew = read()
+        print(f"[13d] {name}: {json.dumps(res)}; launches "
+              f"{ {k: v for k, v in grew.items() if v} } ({card})")
+        print(f"[13d] {name}: auc_final {res['auc_final']:.6f} (record {rec['auc_final']} "
+              f"+- {rec['auc_band']}), sweeps_to_converged {res['sweeps_to_converged']} "
+              f"(record {rec['sweeps_to_converged']} + slack {rec['sweeps_slack']}), "
+              f"auc_bayes {res['auc_bayes']:.6f}; seconds_per_sweep "
+              f"{res['seconds_per_sweep']:.6e}, seconds_to_converged_auc {res['value']:.6f} "
+              f"({card})")
+        assert abs(res["auc_final"] - rec["auc_final"]) <= rec["auc_band"], (name, res)
+        assert res["sweeps_to_converged"] <= rec["sweeps_to_converged"] + rec["sweeps_slack"]
+        if "auc_chance_floor" in rec:
+            assert res["auc_final"] >= rec["auc_chance_floor"], (name, res)
+        # K1: the untimed first step and the timed loop; K2: the first step's
+        # check, the Bayes ceiling and one check a step.
+        assert grew[em_bdr.KERNEL_NAME] == args.freq + sweeps, grew
+        assert grew[score.KERNEL_NAME] == 2 + sweeps // args.freq, grew
+        assert sum(grew.values()) == grew[em_bdr.KERNEL_NAME] + grew[score.KERNEL_NAME], grew
+        total = {k: total[k] + grew[k] for k in total}
+        # The first step bench_quality took, against the plain sweep; then
+        # the run from the numpy draw fit starts from (seed 0), held to the
+        # AUC band and chance floor only: the records' sweeps came from the
+        # reference's draw, which bench_quality starts from.
+        case = bench_quality.quality_case(args)
+        _check_engine_step(f"13d {name}", case.train, reference_init_states(
+            args.seed, args.samples, args.genes, args.k, bench_quality.R, device=case.dev),
+            case.route, args.freq)
+        own = bench_quality.train_to_converged(
+            case.step, init_state(args.genes, args.k, bench_quality.R, samples=args.samples,
+                                  seed=0, device=case.dev),
+            case.check_auc, args.max_sweeps, args.freq, args.tol)
+        print(f"[13d] {name}, fit's numpy draw (seed 0): auc_final {own.auc_final:.6f} "
+              f"(record {rec['auc_final']} +- {rec['auc_band']}), sweeps_to_converged "
+              f"{own.sweeps_to_converged} (held to nothing), seconds_per_sweep "
+              f"{own.seconds_per_sweep:.6e}, seconds_to_converged_auc "
+              f"{own.seconds_to_converged:.6f} ({card})")
+        assert abs(own.auc_final - rec["auc_final"]) <= rec["auc_band"], (name, own.auc_final)
+        assert own.auc_final >= rec.get("auc_chance_floor", 0.0), (name, own.auc_final)
+        del case, own
+    print(f"[13] phase wall {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1480,6 +1701,8 @@ def main() -> int:
     from trigenicinteractionpredictor_tpu_torch.ab_kernels import pass_split
     from trigenicinteractionpredictor_tpu_torch.ops import (
         _build,
+        em_bd,
+        em_bdg,
         em_bdr,
         em_hybrid,
         em_large_k,
@@ -1789,6 +2012,10 @@ def main() -> int:
     dist_counts = distributed_phase(card, dev, cli_main, train, res)
     k7_kernel["launches"] += dist_counts[em_hybrid.KERNEL_NAME]
 
+    # 13. the bench entry point: bench, bench --serve, the records' shapes,
+    # bench_quality at both quality records
+    bench_counts = bench_phase(card, here, cli_main, res.sweeps_run / res.wall_seconds)
+
     src = "trigenicinteractionpredictor_tpu_torch/csrc/"
     ref = "trigenicinteractionpredictor_tpu/ops/"
     k3_50, k3_top = k3_times[50], k3_times[em_large_k.MAX_K]
@@ -1831,6 +2058,12 @@ def main() -> int:
         k9_kernel,
     ]
     assert len(kernels) == 9
+    # Phase 13's launches: K5a's (em_streams) ran on the large-G route (S = 1).
+    by_row = {"em_sweep": em_bdr.KERNEL_NAME, "score": score.KERNEL_NAME,
+              "em_sweep_large_k": em_large_k.KERNEL_NAME, "em_bdg": em_bdg.ESTEP_NAME,
+              "plan_scatter": em_bd.SCATTER_NAME, "large_g": em_bd.STREAMS_NAME}
+    for kern in kernels:
+        kern["launches"] += bench_counts.get(by_row.get(kern["name"].split()[0]), 0)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -850,3 +850,48 @@ def test_two_gloo_ranks_on_the_card_match_one_process(dev, tmp_path):
         assert int(z["sweeps"]) == one.sweeps_run
         np.testing.assert_allclose(z["ll"], one.final_loglik, rtol=1e-5)
         np.testing.assert_allclose(z["trace"], one.ll_trace, rtol=1e-5)
+
+
+def _records():
+    import json
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "perf_records.json")) as fh:
+        return json.load(fh)
+
+
+def test_bench_engine_launches_its_route(dev):
+    """``bench.measure_engine`` at the headline shape (20 sweeps a timed
+    run): K1 at S = 1 and S = 10, launched once a sweep of the first step
+    and the three timed runs, nothing else launched."""
+    from trigenicinteractionpredictor_tpu_torch import bench
+
+    before = em_bdr.em_ensemble_stats.launches
+    runs = bench.measure_engine(bench.parse_args(["--sweeps", "20"]))
+    assert [r.samples for r in runs] == [1, bench.S]
+    for r in runs:
+        assert r.route == em_bdr.KERNEL_NAME and r.sweeps == 20
+        assert r.launches == {em_bdr.KERNEL_NAME: 10 + 3 * 20}
+        assert r.updates_per_sec > 0 and np.isfinite(r.ll_best)
+    assert em_bdr.em_ensemble_stats.launches == before + 2 * (10 + 3 * 20)
+
+
+@pytest.mark.parametrize("name", ["default", "recoverable"])
+def test_quality_bands_on_the_card(dev, name):
+    """``bench_quality`` at a quality record's args lands in the record's
+    bands: |auc_final - record| <= auc_band, sweeps_to_converged <= record
+    + sweeps_slack, and (recoverable) auc_final >= auc_chance_floor; K1 ran
+    every sweep and K2 every AUC check."""
+    from trigenicinteractionpredictor_tpu_torch import bench_quality
+
+    rec = _records()["quality"][name]
+    args = bench_quality.parse_args(rec["args"] + ["--device", "cuda"])
+    sweeps = args.max_sweeps // args.freq * args.freq
+    k1, k2 = em_bdr.em_ensemble_stats.launches, score.ensemble_score.launches
+    res = bench_quality.measure(args)
+    assert abs(res["auc_final"] - rec["auc_final"]) <= rec["auc_band"], res
+    assert res["sweeps_to_converged"] <= rec["sweeps_to_converged"] + rec["sweeps_slack"], res
+    assert res["auc_final"] >= rec.get("auc_chance_floor", 0.0), res
+    assert em_bdr.em_ensemble_stats.launches - k1 == args.freq + sweeps
+    assert score.ensemble_score.launches - k2 == 2 + sweeps // args.freq

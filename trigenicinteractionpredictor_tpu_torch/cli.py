@@ -1,6 +1,6 @@
 """Command-line entry points of the port (counterpart of the reference's
 ``cli.py``, for ``fit``, ``cv``, ``sweep``, ``predict``, ``analyze``,
-``synth`` and ``verify-parity``):
+``synth``, ``verify-parity`` and ``bench``):
 
     python -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv -k 10 -i 400 -s 10 -o runs/fit
     python -m trigenicinteractionpredictor_tpu_torch fit -f store_dir -k 25 -s 2 -i 3 --minibatch 131072 --stream-groups 4
@@ -11,6 +11,7 @@
     python -m trigenicinteractionpredictor_tpu_torch synth -o synth.npz -n 100000 -g 1000
     python -m trigenicinteractionpredictor_tpu_torch fit -f data.tsv --anneal-beta0 0.3 --smem-rounds 2 --refine-rounds 2 --init spectral
     python -m trigenicinteractionpredictor_tpu_torch verify-parity -f data.tsv -k 3 -o runs/parity [--no-fit] [--reference-mount DIR]
+    python -m trigenicinteractionpredictor_tpu_torch bench -n 131072 -g 1000 -k 10 -s 10 --sweeps 120
 
 Flags are the reference's, plus ``--device`` (default ``cuda``; a missing
 GPU is an error that names ``--device cpu``).  ``--backend jnp`` runs the
@@ -27,7 +28,8 @@ knobs (``--anneal-beta0``, ``--refine-rounds``, ``--smem-rounds``,
 ``--init spectral``) reach every unit's ``fit`` in ``fit``, ``sweep`` and
 ``cv``.  What this engine does not run (annealing, refine or split-merge
 with ``--minibatch``) is refused by the trainer, never ignored.  ``bench``
-stays with the JAX package for now.
+runs the port's ``bench.py`` in this process (the reference starts a
+subprocess to keep its TPU claim out of the CLI; the port has no claim).
 
 ``fit``, ``cv`` and ``sweep`` run over several ranks, one process each,
 started by torchrun (``parallel/distributed.py``)::
@@ -413,6 +415,12 @@ def cmd_verify_parity(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from trigenicinteractionpredictor_tpu_torch import bench
+
+    return bench.run(args)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="trigenicinteractionpredictor_tpu_torch",
@@ -485,6 +493,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_vp.add_argument("--reference-mount", default=None, metavar="DIR",
                       help="directory that should hold the upstream reference tree")
     p_vp.set_defaults(fn=cmd_verify_parity)
+
+    from trigenicinteractionpredictor_tpu_torch import bench
+
+    p_be = subs.add_parser("bench", parents=[bench.arg_parser(add_help=False)],
+                           help="run the repo benchmark (bench.py)")
+    p_be.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     from trigenicinteractionpredictor_tpu_torch.parallel.distributed import shutdown

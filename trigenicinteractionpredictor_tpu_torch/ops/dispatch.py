@@ -44,6 +44,8 @@ The returned function takes (thetas [S,G,K], ps [S,...,R], batch) and
 carries ``kernel_name``, which the trainer records in events, checkpoints
 and ``FitResult``; a plan route's function also carries ``needs_plan`` or
 ``needs_g1plan`` and its block widths, and the trainer attaches the plans.
+``route_kernels`` names the kernel wrappers each route launches, whose
+counts show that a sweep ran on its kernels.
 """
 
 from __future__ import annotations
@@ -235,6 +237,24 @@ def stats_fn_for(name: str, k: int = 0, n_ratings: int = 2, row_chunk: int = 0,
         raise ValueError(f"unknown sweep route {name!r}")
     fn.kernel_name = name
     return fn
+
+
+def route_kernels(name: str) -> tuple:
+    """The kernel wrappers a sweep of route ``name`` launches, each once a
+    sweep (none for the plain sweep); their ``launches`` counts show that
+    the route ran on its kernels."""
+    kernels = {
+        PLAIN_NAME: (),
+        em_bdr.KERNEL_NAME: (em_bdr.em_ensemble_stats,),
+        em_large_k.KERNEL_NAME: (em_large_k.em_ensemble_stats,),
+        em_hybrid.KERNEL_NAME: (em_hybrid.hybrid_stats,),
+        em_bdg.KERNEL_NAME: (em_bdg.bdg_estep, em_bd.plan_scatter),
+        em_bd.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter),
+        em_large_g.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter),
+    }
+    if name not in kernels:
+        raise ValueError(f"unknown sweep route {name!r}")
+    return kernels[name]
 
 
 def resolve_stats_fn(
