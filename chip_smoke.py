@@ -91,8 +91,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                (``cuda:0``), each rank's kernel launches set to 0 just before
                its fit and read just after, and the per-sweep all_reduce at
                the fit's shape timed by CUDA events: 12a phase 6's fit as a
-               world of one under NCCL (final L within 1e-6 of phase 6's fit,
-               its trace within 1e-5: K1 sums the trace's L by atomics); 12b
+               world of one under NCCL (final L and L trace equal to phase
+               6's fit); 12b
                two gloo ranks, ``data 2``, and 12c four, ``data 2 x
                ensemble 2`` (K1 on each rank's rows and restarts; the same
                stop sweep and L within 1e-5 of phase 6's fit); 12d two ranks,
@@ -125,6 +125,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                step from the run's initial states through the routed and the
                plain sweep, each on its own fit batch of the same rows,
                theta and p within STATS_REL_TOL, every L within LOGLIK_RTOL.
+14. the same bits from run to run -- each sweep route at the shapes of
+               phases 3-10 (SAME_BITS_ROUTES: K1 at G = 1000 and in its
+               streams form at G = 100,000, K3 at K = 50 and 72, K7, K4 + K5b,
+               K5a + K5b at G = 500,000, K6, K9 and the plain sweep on CUDA)
+               run twice on the route's fit batch: theta_hat, p_hat and loglik
+               equal (``torch.equal``), and each kernel the route names
+               launched twice; phase 6's fit run again: the same final states,
+               L trace and final L; phase 11e's four-knob fit run twice on
+               the kernel route: the same final L lane for lane, the same
+               rounds (from, to, accepted move) and the same final states;
+15. the studies -- ``tools/stepwise_host_cost``, ``quality_study``,
+               ``split_merge_study`` and ``tensor_spectral_study`` at a small
+               size on the card, in process, each printing its JSON lines;
+               then the block sum (``csrc/block_sum.cu``) timed at K1's
+               partials of the headline shape, against its plain version and
+               one ``torch.sum``, and run twice for the same bits.
 
 The line before the last holds the kernels' record as JSON (``launches``
 sums the counted paths that run the kernel; ``bound_ms`` is the larger of
@@ -152,7 +168,7 @@ K3_TOP_SWEEPS = 10    # the K = 72 fit through the CLI
 SWEEP_GRID = "5,10,25,50"
 SWEEP_SWEEPS = 20
 # Tolerances of kernel vs plain version.  Both run in float32 and sum in
-# other orders (the kernel through atomics in run-dependent order); each
+# other orders (each in an order fixed by its inputs and plan); each
 # p_hat cell sums over all N rows, so the expected relative error of either
 # is ~sqrt(N) * 2^-24 ~ 2e-5 at N = 131,072.  Stated as: the max abs error
 # of theta_hat and p_hat over the largest |plain| entry; the relative error
@@ -174,6 +190,7 @@ STREAM_N, STREAM_GROUPS, STREAM_EPOCHS = 10_000_000, 8, 2
 RSORT_TILE = 512      # plan tile of the rating-sorted path (its default)
 ANNEAL_BETA = 0.3     # the DAEM start of phase 11
 K8_SHAPE = (64, 4000)  # (K, G) where the reference runs its bdrg kernel (K8)
+BLOCK_SUM = "cuda-block-sum"  # ops/block_sum.py's kernel name
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -483,9 +500,9 @@ def large_g_phase(card: str, dev, cli_main) -> list:
             job_counts[em_bd.SCATTER_NAME] + bd_n[em_bd.SCATTER_NAME],
             max(r["s_err"] for r in rec.values()), bdg, "scatter", "scatter_plain",
             bdg["scatter_library"]),
-        row("em_streams", "em_streams.cu", "pallas_em_bd.py:215", bd_n[em_bd.STREAMS_NAME],
+        row("em_streams", "em_sweep.cu", "pallas_em_bd.py:215", bd_n[em_bd.STREAMS_NAME],
             bd["e_err"], bd, "estep", "estep_plain"),
-        row("large_g (em_streams + plan_scatter at S = 1)", "em_streams.cu",
+        row("large_g (em_streams + plan_scatter at S = 1)", "em_sweep.cu",
             "pallas_em_large.py:275", lg_n[em_bd.STREAMS_NAME], max(s1["e_err"], s1["s_err"]),
             s1, "kernel", "plain"),
     ]
@@ -734,6 +751,7 @@ def stepwise_phase(card: str, dev, cli_main):
 def _launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
     from trigenicinteractionpredictor_tpu_torch.ops import (
+        block_sum,
         em_bd,
         em_bdg,
         em_bdr,
@@ -746,7 +764,7 @@ def _launch_counters() -> dict:
     return {fn.kernel_name: fn for fn in (
         em_bdr.em_ensemble_stats, em_large_k.em_ensemble_stats, em_hybrid.hybrid_stats,
         em_bdg.bdg_estep, em_bd.em_streams, em_bd.plan_scatter, score.ensemble_score,
-        em_rsorted.rsorted_em_ensemble_stats)}
+        em_rsorted.rsorted_em_ensemble_stats, block_sum.block_sum)}
 
 
 def sentinel_phase(card: str, dev) -> None:
@@ -896,7 +914,7 @@ def rsorted_phase(card: str, dev, ds, train, k1_fit) -> dict:
           f"(K1 {k1_fit.sweeps_run / k1_fit.wall_seconds:.2f}), "
           f"{res.triplets_per_sec * S:.4e} restart-triplet updates/s ({card})")
     assert res.dispatch["kernel"] == em_rsorted.KERNEL_NAME and res.dispatch["tile_b"] == RSORT_TILE
-    assert classic == {em_rsorted.KERNEL_NAME: sweeps}, classic
+    assert classic == {em_rsorted.KERNEL_NAME: sweeps, BLOCK_SUM: sweeps}, classic
     assert res.ll_trace.shape == (sweeps // 10, S) and np.isfinite(res.ll_trace).all()
     assert drop <= LL_DROP_RTOL
     np.testing.assert_allclose(res.final_loglik, k1_fit.final_loglik, rtol=FIT_RTOL)
@@ -916,7 +934,8 @@ def rsorted_phase(card: str, dev, ds, train, k1_fit) -> dict:
           f"{on_k1.triplets_per_sec:.4e}) ({card})")
     n_mb = sw.layout["n_minibatches"]
     assert sw.layout["rsort_padded_mb"] == (STEPWISE_MB // RSORT_TILE + R) * RSORT_TILE
-    assert stepwise == {em_rsorted.KERNEL_NAME: 2 * n_mb} and 2 * n_mb == 16, stepwise
+    assert stepwise == {em_rsorted.KERNEL_NAME: 2 * n_mb, BLOCK_SUM: 2 * n_mb}, stepwise
+    assert 2 * n_mb == 16
     np.testing.assert_allclose(sw.final_loglik, on_k1.final_loglik, rtol=FIT_RTOL)
     del big
 
@@ -954,13 +973,11 @@ def quality_phase(card: str, dev, cli_main, ds, train, k1_fit) -> dict:
     import numpy as np
     import torch
 
-    from trigenicinteractionpredictor_tpu_torch import Config
     from trigenicinteractionpredictor_tpu_torch.config import DataConfig
     from trigenicinteractionpredictor_tpu_torch.data import (
         TripletDataset,
         kuzmin,
         load_kuzmin_tsv,
-        sample_synthetic_dataset,
         write_kuzmin_like_tsv,
     )
     from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
@@ -1090,21 +1107,8 @@ def quality_phase(card: str, dev, cli_main, ds, train, k1_fit) -> dict:
         launched[em_bdr.KERNEL_NAME] += run.get(em_bdr.KERNEL_NAME, 0)
 
     # 11e. a small fit with all four knobs, kernel against plain (not counted)
-    small, _, _ = sample_synthetic_dataset(4096, 200, K, n_ratings=R, seed=4)
-    cfg = Config()
-    cfg = cfg.replace(train=dataclasses.replace(
-        cfg.train, k=K, sweeps=20, samples=4, likelihood_freq=5, seed=5, anneal_beta0=ANNEAL_BETA,
-        anneal_sweeps=10, init_method="spectral", smem_rounds=2, smem_sweeps=5, refine_rounds=2,
-        refine_sweeps=5))
-
-    class Events:
-        def __init__(self):
-            self.events = []
-
-        def log(self, event, **fields):
-            self.events.append((event, fields))
-
-    ev_kernel, ev_plain = Events(), Events()
+    small, cfg = _four_knob_fit()
+    ev_kernel, ev_plain = _Events(), _Events()
     via_kernel = fit(cfg, small, device=dev, logger=ev_kernel)
     via_plain = fit(cfg, small, device=dev, logger=ev_plain, stats_fn=plain_stats)
     done_rounds = [[(e, f.get("to_ll"), f.get("accepted_move")) for e, f in ev.events
@@ -1185,11 +1189,10 @@ def quality_phase(card: str, dev, cli_main, ds, train, k1_fit) -> dict:
 DIST_TIMEOUT_S = 300   # a rank's process group: a dead peer fails the others
 DIST_WAIT_S = 600      # one world of phase 12, start to end
 DIST_FIT_RTOL = 1e-5   # a multi-rank fit against the one-process fit (12b, 12c, 12e)
-# 12a: a world of one runs the same sums, so its final L (plain torch on the
-# final states) is held to 1e-6; its L trace is K1's in-kernel loglik,
-# summed by atomics in an order that changes from run to run (phase 6's
-# fit run twice in one process: 4.3e-7 apart), so held to DIST_FIT_RTOL.
-NCCL_ONE_RTOL = 1e-6
+# 12a: a world of one runs the same sums as one process, in the same fixed
+# order (no sweep kernel sums floats by atomics), so its final L and its L
+# trace are held to equality.
+NCCL_ONE_RTOL = 0.0
 TP_ATOL = 2e-5         # 12d: the reference's TP fit tolerance (rtol: DIST_FIT_RTOL)
 DIST_STEPWISE_RTOL = 1e-4  # 12f: the stepwise fit
 
@@ -1379,20 +1382,10 @@ def distributed_phase(card: str, dev, cli_main, train, k1_fit) -> dict:
         train.save_npz(data)
         n_train = train.n_rows
 
-        # Two runs of one fit differ where K1's atomics add in another
-        # order: the spread of phase 6's fit against a second one, for scale.
-        again_cfg = Config()
-        again_cfg = again_cfg.replace(train=dataclasses.replace(again_cfg.train, **headline))
-        again = fit(again_cfg, train, device=dev, logger=quiet)
-        spread = [float(np.max(np.abs(a - b) / np.abs(b))) for a, b in (
-            (again.ll_trace, k1_fit.ll_trace), (again.final_loglik, k1_fit.final_loglik))]
-        print(f"[12] phase 6's fit run again in this process: trace max rel diff "
-              f"{spread[0]:.3e}, final L {spread[1]:.3e} ({card})")
-
         # 12a. a world of one under NCCL: the mesh code with its collectives
         outs = world("12a", 1, "nccl", (1, 1, 1), headline, data)
         k1_launches(outs, 50)
-        same_fit("12a", outs, k1_fit, NCCL_ONE_RTOL, trace_rtol=DIST_FIT_RTOL)
+        same_fit("12a", outs, k1_fit, NCCL_ONE_RTOL)
 
         # 12b. two gloo ranks, data 2
         outs = world("12b", 2, "gloo", (1, 1, 2), headline, data)
@@ -1581,8 +1574,8 @@ def bench_phase(card: str, here: str, cli_main, fit_sweeps_per_s: float) -> dict
     assert line["unit"] == "triplets/s" and line["vs_baseline"] >= 100, line
     routes = dict(re.findall(r"^S=(\d+) route (\S+): first step", err.getvalue(), re.M))
     assert routes == {"1": em_bdr.KERNEL_NAME, "10": em_bdr.KERNEL_NAME}, routes
-    assert grew[em_bdr.KERNEL_NAME] == BENCH_HEADLINE_LAUNCHES, grew
-    assert sum(grew.values()) == BENCH_HEADLINE_LAUNCHES, grew
+    assert grew[em_bdr.KERNEL_NAME] == grew[BLOCK_SUM] == BENCH_HEADLINE_LAUNCHES, grew
+    assert sum(grew.values()) == 2 * BENCH_HEADLINE_LAUNCHES, grew
     s1 = float(re.search(r"^S=1 route .* -> (\S+) restart-triplet", err.getvalue(), re.M)[1])
     print(f"[13a] S=10: {line['value']:.6e} restart-triplet updates/s, "
           f"{line['value'] / (131_072 * 10):.2f} sweeps/s (phase 6's fit "
@@ -1649,7 +1642,9 @@ def bench_phase(card: str, here: str, cli_main, fit_sweeps_per_s: float) -> dict
         # check, the Bayes ceiling and one check a step.
         assert grew[em_bdr.KERNEL_NAME] == args.freq + sweeps, grew
         assert grew[score.KERNEL_NAME] == 2 + sweeps // args.freq, grew
-        assert sum(grew.values()) == grew[em_bdr.KERNEL_NAME] + grew[score.KERNEL_NAME], grew
+        assert grew[BLOCK_SUM] == grew[em_bdr.KERNEL_NAME], grew
+        assert sum(grew.values()) == (grew[em_bdr.KERNEL_NAME] + grew[BLOCK_SUM]
+                                      + grew[score.KERNEL_NAME]), grew
         total = {k: total[k] + grew[k] for k in total}
         # The first step bench_quality took, against the plain sweep; then
         # the run from the numpy draw fit starts from (seed 0), held to the
@@ -1674,6 +1669,225 @@ def bench_phase(card: str, here: str, cli_main, fit_sweeps_per_s: float) -> dict
     print(f"[13] phase wall {time.perf_counter() - t_phase:.2f} s; launches "
           f"{ {k: v for k, v in total.items() if v} }")
     return total
+
+
+def _four_knob_fit():
+    """Phase 11e's rows (G = 200, N = 4096) and config (S = 4, annealing,
+    spectral init, two split-merge and two refine rounds)."""
+    from trigenicinteractionpredictor_tpu_torch import Config
+    from trigenicinteractionpredictor_tpu_torch.data import sample_synthetic_dataset
+
+    K, R = HEADLINE["k"], HEADLINE["ratings"]
+    small, _, _ = sample_synthetic_dataset(4096, 200, K, n_ratings=R, seed=4)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=K, sweeps=20, samples=4, likelihood_freq=5, seed=5, anneal_beta0=ANNEAL_BETA,
+        anneal_sweeps=10, init_method="spectral", smem_rounds=2, smem_sweeps=5, refine_rounds=2,
+        refine_sweeps=5))
+    return small, cfg
+
+
+class _Events:
+    """A fit logger that keeps its events."""
+
+    def __init__(self):
+        self.events = []
+
+    def log(self, event, **fields):
+        self.events.append((event, fields))
+
+
+# Phase 14: each sweep route at the shapes of phases 3-10, (route, K, G, S);
+# K1 at G = 100,000 takes its streams form (ops/em_bdr.py::theta_in_part).
+SAME_BITS_ROUTES = (
+    ("cuda-em-sweep", 10, 1000, 10),
+    ("cuda-em-sweep", 10, 100_000, 10),
+    ("cuda-em-sweep-large-k", 50, 1000, 10),
+    ("cuda-em-sweep-large-k", 72, 1000, 10),
+    ("cuda-em-hybrid", 25, 6000, 2),
+    ("cuda-em-bdg", 10, 100_000, 10),
+    ("cuda-em-bd-plan", 10, 500_000, 10),
+    ("cuda-em-large-g", 10, 100_000, 1),
+    ("cuda-em-rsorted", 10, 1000, 10),
+    ("torch", 10, 1000, 10),
+)
+
+
+def determinism_phase(card: str, dev, train, k1_fit) -> None:
+    """Phase 14 (see the module docstring): every sweep route, K9 and the
+    plain sweep on CUDA run twice at the shapes of phases 3-10 give the same
+    bits; phase 6's fit run again gives the same final states and L trace;
+    phase 11e's four-knob fit run twice on the kernel route patches the
+    same lanes with the same bits."""
+    import numpy as np
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch import Config
+    from trigenicinteractionpredictor_tpu_torch.data import sample_synthetic_dataset
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+    from trigenicinteractionpredictor_tpu_torch.ops import dispatch, em_bdr, em_rsorted
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import (
+        JsonlLogger,
+        _make_fit_batch,
+        fit,
+    )
+
+    t_phase = time.perf_counter()
+    N, R = HEADLINE["n"], HEADLINE["ratings"]
+    quiet = JsonlLogger(None, echo=False)
+    counters = _launch_counters()
+    for name, k, g, s in SAME_BITS_ROUTES:
+        if name == em_rsorted.KERNEL_NAME:
+            stats_fn = em_rsorted.stats_fn(RSORT_TILE)
+        else:
+            stats_fn = dispatch.stats_fn_for(name, k, R, row_chunk=16_384)
+        ds, _, _ = sample_synthetic_dataset(N, g, 10, n_ratings=R, seed=7)
+        batch = _make_fit_batch(ds, stats_fn, dev, quiet)
+        st = init_state(g, k, R, samples=s, seed=8, device=dev)
+        before = {n: fn.launches for n, fn in counters.items()}
+        runs = [stats_fn(st.theta, st.p, batch) for _ in range(2)]
+        torch.cuda.synchronize()
+        ran = {n: fn.launches - before[n] for n, fn in counters.items() if fn.launches > before[n]}
+        for field in ("theta_hat", "p_hat", "loglik"):
+            a, b = getattr(runs[0], field), getattr(runs[1], field)
+            assert torch.isfinite(a).all() and torch.equal(a, b), (name, k, g, s, field)
+        if name == em_bdr.KERNEL_NAME:
+            streams = not em_bdr.theta_in_part(N, s, g, k, em_bdr.sweep_plan(k, R)[0],
+                                                em_bdr.sm_count(dev))
+            assert streams == (g == 100_000), (g, streams)
+            assert ("cuda-plan-scatter" in ran) == streams, ran
+        kernels = [] if name == dispatch.PLAIN_NAME else [
+            fn.kernel_name for fn in dispatch.route_kernels(name)
+        ] if name != em_rsorted.KERNEL_NAME else [em_rsorted.KERNEL_NAME, BLOCK_SUM]
+        assert all(ran.get(kn) == 2 for kn in kernels), (name, ran)
+        print(f"[14 same bits] {name} K={k} G={g} S={s} (N={N}): theta_hat, p_hat, loglik "
+              f"equal over two runs (torch.equal); launches {ran}")
+        del runs, batch, st, ds
+        torch.cuda.empty_cache()
+
+    # Phase 6's fit again (no checkpoints: they change no arithmetic).
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, k=HEADLINE["k"], sweeps=50, samples=HEADLINE["samples"], likelihood_freq=10,
+        seed=0))
+    again = fit(cfg, train, device=dev, logger=quiet)
+    assert torch.equal(again.states.theta, k1_fit.states.theta)
+    assert torch.equal(again.states.p, k1_fit.states.p)
+    assert np.array_equal(again.ll_trace, k1_fit.ll_trace)
+    assert np.array_equal(again.final_loglik, k1_fit.final_loglik)
+    print(f"[14 same bits] phase 6's fit run again: final states, L trace "
+          f"({again.ll_trace.shape[0]} checks) and final L identical")
+
+    # Phase 11e's four-knob fit twice on the kernel route.
+    small, cfg = _four_knob_fit()
+    fits = []
+    for _ in range(2):
+        ev = _Events()
+        res = fit(cfg, small, device=dev, logger=ev)
+        rounds = [(e, f.get("from_ll"), f.get("to_ll"), f.get("accepted_move"))
+                  for e, f in ev.events if e in ("smem_done", "refine_done")]
+        fits.append((res, rounds))
+    (a, ra), (b, rb) = fits
+    assert a.dispatch["kernel"] == em_bdr.KERNEL_NAME
+    assert ra == rb, (ra, rb)
+    assert np.array_equal(a.final_loglik, b.final_loglik), (a.final_loglik, b.final_loglik)
+    assert torch.equal(a.states.theta, b.states.theta) and torch.equal(a.states.p, b.states.p)
+    print(f"[14 same bits] phase 11e's four-knob fit twice: final L {a.final_loglik.tolist()} "
+          f"lane for lane, every round {ra} and the final states identical")
+    print(f"[14] phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+
+
+def studies_phase(card: str) -> None:
+    """Phase 15: each ported study of ``tools/`` at a small size on the card,
+    in process (its JSON lines checked for their keys)."""
+    import contextlib
+    import io
+
+    from trigenicinteractionpredictor_tpu_torch.tools import (
+        quality_study,
+        split_merge_study,
+        stepwise_host_cost,
+        tensor_spectral_study,
+    )
+
+    small = ["-n", "20000", "-g", "200", "-k", "10"]
+    runs = (
+        ("stepwise_host_cost", stepwise_host_cost,
+         ["--n", "1000000", "--mb", "131072", "--workers", "4"], "pipeline"),
+        ("quality_study", quality_study, ["--small", "-i", "60", "-s", "4"], "arm"),
+        ("split_merge_study", split_merge_study,
+         ["--small", "-i", "60", "-s", "4", "--rounds", "2", "--cands", "4", "--resweep", "20"],
+         "arm"),
+        ("tensor_spectral_study", tensor_spectral_study, small + ["--seeds", "1", "--sweeps", "60"],
+         "method"),
+    )
+    for name, mod, argv, key in runs:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            assert mod.main(argv + ["--device", "cuda"]) == 0, name
+        lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        assert any(key in ln for ln in lines), (name, lines)
+        for ln in lines:
+            print(f"[15 {name}] {json.dumps(ln)}")
+        print(f"[15 {name}] {time.perf_counter() - t0:.2f} s ({card})")
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device ms per call of everything ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+             for ev in prof.key_averages())
+    assert us > 0, "the profiler saw no device time"
+    return us / 1e3 / reps
+
+
+def _time_block_sum(card: str, dev) -> dict:
+    """The block sum's row of the kernels line, at K1's partials at the
+    headline shape (S = 10, the blocks of em_bdr.launch_plan, [G K | K^3 R
+    | 1] a block)."""
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch.ops import block_sum, em_bdr
+
+    N, G, K, R, S = (HEADLINE[k] for k in ("n", "genes", "k", "ratings", "samples"))
+    tile = em_bdr.sweep_plan(K, R)[0]
+    _, nb = em_bdr.launch_plan(N, S, tile, em_bdr.sm_count(dev))
+    cells = K ** 3 * R
+    ld = G * K + cells + 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    part = torch.rand((S, nb, ld), device=dev, generator=gen)
+    segs = [block_sum.Segment(part, 0, G * K), block_sum.Segment(part, G * K, cells),
+            block_sum.Segment(part, G * K + cells, 1)]
+    got = block_sum.block_sum(segs)
+    want = block_sum.block_sum_reference(segs)
+    again = block_sum.block_sum(segs)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, again)) and err <= 1e-4 * nb
+    # Device time from the profiler: a call's host side (three output
+    # tensors, the ctypes call) outlasts the kernel's few microseconds.
+    ms = _device_ms(lambda: block_sum.block_sum(segs), 50)
+    plain = _device_ms(lambda: block_sum.block_sum_reference(segs), 50)
+    library = _device_ms(lambda: part.sum(1), 50)
+    bound = _bound(float(S * nb * ld), 4.0 * S * nb * ld + 4.0 * S * ld)
+    print(f"[block_sum] S={S}, {nb} blocks x {ld} floats: {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"one torch.sum {library:.4f} ms of device time a call (torch.profiler), bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); max abs err {err:.3e}; same bits twice ({card})")
+    return {"name": "block_sum", "route": "cuda",
+            "source": "trigenicinteractionpredictor_tpu_torch/csrc/block_sum.cu",
+            "replaces": "trigenicinteractionpredictor_tpu/ops/pallas_em_bdr.py:265",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library}
 
 
 def main() -> int:
@@ -1701,6 +1915,7 @@ def main() -> int:
     from trigenicinteractionpredictor_tpu_torch.ab_kernels import pass_split
     from trigenicinteractionpredictor_tpu_torch.ops import (
         _build,
+        block_sum,
         em_bd,
         em_bdg,
         em_bdr,
@@ -1872,6 +2087,7 @@ def main() -> int:
         with JsonlLogger(os.path.join(tmp, "events.jsonl"), echo=False) as logger:
             em_bdr.em_ensemble_stats.launches = 0
             score.ensemble_score.launches = 0
+            block_sum.block_sum.launches = 0
             res = fit(cfg, train, device=dev, logger=logger, checkpoint_path=ckpt)
             report = evaluate(res.states, test, res.final_loglik)
             t_serve = time.perf_counter()
@@ -1879,12 +2095,13 @@ def main() -> int:
             serve_s = time.perf_counter() - t_serve
             k1_launches = em_bdr.em_ensemble_stats.launches
             k2_launches = score.ensemble_score.launches
+            sum_launches = block_sum.block_sum.launches
         ck = load_checkpoint(ckpt)
         assert ck["sweep"] == sweeps and tuple(ck["states"].theta.shape) == (S, G, K)
 
     print(f"[fit] dispatch {json.dumps(res.dispatch, sort_keys=True)}")
     assert res.dispatch["kernel"] == em_bdr.KERNEL_NAME, res.dispatch
-    assert k1_launches >= sweeps, k1_launches
+    assert k1_launches >= sweeps and sum_launches == k1_launches, (k1_launches, sum_launches)
     assert k2_launches >= 1, k2_launches
     trace = res.ll_trace
     assert trace.shape == (sweeps // 10, S) and np.isfinite(trace).all()
@@ -2016,6 +2233,14 @@ def main() -> int:
     # bench_quality at both quality records
     bench_counts = bench_phase(card, here, cli_main, res.sweeps_run / res.wall_seconds)
 
+    # 14. the same bits from run to run
+    determinism_phase(card, dev, train, res)
+
+    # 15. the studies of tools/ at a small size
+    studies_phase(card)
+    sums = _time_block_sum(card, dev)
+    sums["launches"] = sum_launches + bench_counts.get(BLOCK_SUM, 0)
+
     src = "trigenicinteractionpredictor_tpu_torch/csrc/"
     ref = "trigenicinteractionpredictor_tpu/ops/"
     k3_50, k3_top = k3_times[50], k3_times[em_large_k.MAX_K]
@@ -2056,8 +2281,9 @@ def main() -> int:
         *large_g_kernels,
         k7_kernel,
         k9_kernel,
+        sums,
     ]
-    assert len(kernels) == 9
+    assert len(kernels) == 10
     # Phase 13's launches: K5a's (em_streams) ran on the large-G route (S = 1).
     by_row = {"em_sweep": em_bdr.KERNEL_NAME, "score": score.KERNEL_NAME,
               "em_sweep_large_k": em_large_k.KERNEL_NAME, "em_bdg": em_bdg.ESTEP_NAME,

@@ -44,6 +44,7 @@ from trigenicinteractionpredictor_tpu_torch.data import (
 from trigenicinteractionpredictor_tpu_torch.models import threefry
 from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
 from trigenicinteractionpredictor_tpu_torch.ops import (
+    block_sum,
     dispatch,
     em_bd,
     em_bdg,
@@ -272,13 +273,14 @@ def test_launch_check_raises_when_a_routed_kernel_did_not_launch(monkeypatch):
     """(f) Every kernel route names its kernels; the check raises when one
     of them did not launch once a call, and the bench raises when its route
     names a kernel whose counter did not move (a silent fall-through)."""
+    sums = block_sum.KERNEL_NAME
     kernels = {
-        em_bdr.KERNEL_NAME: {em_bdr.KERNEL_NAME},
-        em_large_k.KERNEL_NAME: {em_large_k.KERNEL_NAME},
-        em_hybrid.KERNEL_NAME: {em_hybrid.KERNEL_NAME},
-        em_bdg.KERNEL_NAME: {em_bdg.ESTEP_NAME, em_bd.SCATTER_NAME},
-        em_bd.KERNEL_NAME: {em_bd.STREAMS_NAME, em_bd.SCATTER_NAME},
-        em_large_g.KERNEL_NAME: {em_bd.STREAMS_NAME, em_bd.SCATTER_NAME},
+        em_bdr.KERNEL_NAME: {em_bdr.KERNEL_NAME, sums},
+        em_large_k.KERNEL_NAME: {em_large_k.KERNEL_NAME, em_bd.SCATTER_NAME, sums},
+        em_hybrid.KERNEL_NAME: {em_hybrid.KERNEL_NAME, em_bd.SCATTER_NAME, sums},
+        em_bdg.KERNEL_NAME: {em_bdg.ESTEP_NAME, em_bd.SCATTER_NAME, sums},
+        em_bd.KERNEL_NAME: {em_bd.STREAMS_NAME, em_bd.SCATTER_NAME, sums},
+        em_large_g.KERNEL_NAME: {em_bd.STREAMS_NAME, em_bd.SCATTER_NAME, sums},
         score.KERNEL_NAME: {score.KERNEL_NAME},
         dispatch.PLAIN_NAME: set(),
     }
@@ -329,3 +331,32 @@ def test_cli_bench_takes_the_bench_flags(capsys):
                                                    "unit": "cache"}
     with pytest.raises(SystemExit, match="--sweeps must be at least 10"):
         cli_main(["bench", "--sweeps", "5"] + tiny)
+
+
+def test_sweeps_count_only_whole_steps_and_under_one_step_is_refused(monkeypatch):
+    """The reference's ``--sweeps`` fault is not copied (root ``bench.py:243,
+    247``: its loop runs ``SWEEPS // chunk`` steps but its rate counts
+    ``SWEEPS``, so 25 sweeps overstate the rate by 25/20 and fewer than 10
+    time no step).  The port times ``n_chunks`` whole steps and counts
+    ``n_chunks * CHUNK`` sweeps; ``--sweeps`` below one step is refused."""
+    for bad in ("0", "5", "9"):
+        argv = [a if a != "10" else bad for a in TINY]
+        with pytest.raises(SystemExit, match="at least 10"):
+            bench.main(argv)
+    args = bench.parse_args([a if a != "10" else "25" for a in TINY])
+    ds, _, _ = sample_synthetic_dataset(args.n, args.genes, args.k, n_ratings=bench.R, seed=0)
+    steps = []
+    real_step = bench.make_engine_step
+
+    def counting(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def run(states):
+            steps.append(1)
+            return step(states)
+        return run
+
+    monkeypatch.setattr(bench, "make_engine_step", counting)
+    run = bench.engine_run(args, ds, torch.device("cpu"), 2, reps=1)
+    assert run.sweeps == 2 * bench.CHUNK and len(steps) == 1 + 2
+    assert run.updates_per_sec == pytest.approx(run.sweeps * ds.n_rows * 2 / run.seconds)

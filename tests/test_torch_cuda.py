@@ -863,16 +863,19 @@ def _records():
 
 def test_bench_engine_launches_its_route(dev):
     """``bench.measure_engine`` at the headline shape (20 sweeps a timed
-    run): K1 at S = 1 and S = 10, launched once a sweep of the first step
-    and the three timed runs, nothing else launched."""
+    run): K1 and the block sum of its partials at S = 1 and S = 10, each
+    launched once a sweep of the first step and the three timed runs,
+    nothing else launched."""
     from trigenicinteractionpredictor_tpu_torch import bench
+    from trigenicinteractionpredictor_tpu_torch.ops import block_sum
 
     before = em_bdr.em_ensemble_stats.launches
     runs = bench.measure_engine(bench.parse_args(["--sweeps", "20"]))
     assert [r.samples for r in runs] == [1, bench.S]
     for r in runs:
         assert r.route == em_bdr.KERNEL_NAME and r.sweeps == 20
-        assert r.launches == {em_bdr.KERNEL_NAME: 10 + 3 * 20}
+        assert r.launches == {em_bdr.KERNEL_NAME: 10 + 3 * 20,
+                              block_sum.KERNEL_NAME: 10 + 3 * 20}
         assert r.updates_per_sec > 0 and np.isfinite(r.ll_best)
     assert em_bdr.em_ensemble_stats.launches == before + 2 * (10 + 3 * 20)
 
@@ -895,3 +898,50 @@ def test_quality_bands_on_the_card(dev, name):
     assert res["auc_final"] >= rec.get("auc_chance_floor", 0.0), res
     assert em_bdr.em_ensemble_stats.launches - k1 == args.freq + sweeps
     assert score.ensemble_score.launches - k2 == 2 + sweeps // args.freq
+
+
+@pytest.mark.parametrize("route,k,g,s", [
+    ("cuda-em-sweep", 10, 1000, 10), ("cuda-em-sweep", 20, 300, 2),
+    ("cuda-em-sweep-large-k", 25, 1000, 3), ("cuda-em-sweep-large-k", 72, 500, 2),
+    ("cuda-em-hybrid", 25, 3000, 2), ("cuda-em-bdg", 10, 50_000, 4),
+    ("cuda-em-bd-plan", 10, 50_000, 4), ("cuda-em-large-g", 10, 50_000, 1),
+    ("cuda-em-rsorted", 10, 1000, 4), ("cuda-em-rsorted", 28, 300, 2), ("torch", 10, 1000, 4),
+])
+@pytest.mark.parametrize("hub", [False, True])
+def test_sweep_routes_give_the_same_bits_twice(dev, route, k, g, s, hub):
+    """Every sweep route (and K9, and the plain sweep on CUDA) sums in an
+    order fixed by its rows and plan: two runs on the route's fit batch
+    give equal theta_hat, p_hat and loglik, with a hub gene in 40% of the
+    rows at position 1 too (a gene block K4 splits over pieces)."""
+    from trigenicinteractionpredictor_tpu_torch.ops import dispatch
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import _make_fit_batch
+
+    ds, st = _case(20_000, g, k, 2, s, seed=31, dev=dev)
+    if hub:
+        trips = ds.triplets.copy()
+        trips[np.random.default_rng(0).random(len(trips)) < 0.4, 0] = g // 3
+        ds = dataclasses.replace(ds, triplets=trips)
+    fn = (em_rsorted.stats_fn(512) if route == em_rsorted.KERNEL_NAME
+          else dispatch.stats_fn_for(route, k, 2, row_chunk=8192))
+    batch = _make_fit_batch(ds, fn, dev, JsonlLogger(None, echo=False))
+    a, b = fn(st.theta, st.p, batch), fn(st.theta, st.p, batch)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.isfinite(x).all() and torch.equal(x, y)
+
+
+def test_k1_streams_form_gives_the_same_bits_and_the_stats(dev, monkeypatch):
+    """Past its partials budget K1 writes marginal streams for the plan
+    scatter: the same stats as its private form, the same bits twice."""
+    ds, st = _case(20_000, 2000, 10, 2, 4, seed=33, dev=dev)
+    batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+    private = em_bdr.em_ensemble_stats(st.theta, st.p, batch)
+    monkeypatch.setattr(em_bdr, "THETA_PART_BYTES", 0)
+    scatters = em_bd.plan_scatter.launches
+    a = em_bdr.em_ensemble_stats(st.theta, st.p, batch)
+    b = em_bdr.em_ensemble_stats(st.theta, st.p, batch)
+    torch.cuda.synchronize()
+    assert em_bd.plan_scatter.launches == scatters + 2
+    for x, y, z in zip(a, b, private):
+        assert torch.equal(x, y)
+        np.testing.assert_allclose(x.cpu(), z.cpu(), rtol=1e-5, atol=1e-5)

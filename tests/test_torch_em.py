@@ -270,3 +270,38 @@ def test_k1_sweep_plan_range():
 def test_dispatch(device, arity, k, expected):
     fn = dispatch.resolve_stats_fn(device, arity, 1000, k, 10)
     assert fn.kernel_name == expected
+
+
+@pytest.mark.parametrize("arity", [3, 2])
+@pytest.mark.parametrize("hub", [False, True])
+def test_plain_scatter_is_a_fixed_order_segment_sum(arity, hub):
+    """The plain sweep's theta_hat scatter (``ops/em.py::segment_rows``: a
+    stable sort of the gene ids and one segment sum, whose order the ids
+    fix on every device, where CUDA's ``index_add_`` sums with atomics)
+    equals the reference's sweep at its tolerances, with a hub gene in
+    40% of the rows, genes in no row and weight-0 rows; on the CPU it sums
+    in ``index_add_``'s order, so its bits are ``index_add_``'s."""
+    k = 4 if arity == 3 else 6
+    ds, st, jb, tb = _case(400, 60, k, 2, 3, arity=arity, seed=arity + 3 * hub, pad_to=128)
+    if hub:
+        trips = np.array(ds.triplets)
+        trips[np.arange(0, 400, 5), 0] = 11
+        trips[np.arange(1, 400, 5), arity - 1] = 11
+        trips[trips == 59] = 58  # gene 59 in no row
+        jb = jem.Batch(triplets=jnp.asarray(trips), ratings=jb.ratings, weights=jb.weights)
+        tb = tem.make_batch(trips, ds.ratings, ds.weights, "cpu")
+    th, p = st.numpy()
+    out = tem.em_sufficient_stats(st.theta, st.p, tb)
+    _assert_stats(out, _jax_stats(jnp.asarray(th), jnp.asarray(p), jb))
+    if hub:
+        assert float(out.theta_hat[:, 59].abs().max()) == 0.0
+    # index_add_ of the same marginals, position by position, on the CPU
+    if arity == 3:
+        vals, _, _ = tem.position_marginals(st.theta, st.p, tb)
+    else:
+        th1, th2 = (st.theta[..., tb.triplets[:, q].long(), :] for q in range(2))
+        vals = (th1, th2)
+    want = torch.zeros_like(st.theta)
+    for pos, v in enumerate(vals):
+        want.index_add_(-2, tb.triplets[:, pos].long(), v)
+    assert torch.equal(tem.segment_rows(vals, tb.triplets, st.theta.shape[-2]), want)

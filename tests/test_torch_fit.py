@@ -345,10 +345,14 @@ def _tile_bytes(k, r, tile):
     """``csrc/em_tile.cuh`` carve, written out: p[s] and its cross-stats as
     [R][K][K4][K4], T/U [K^2][NS], theta [3][K4][NS], A [3][K][NS], weights
     and scales [NS], weights by row [tile]; ints: gene ids [3][tile],
-    ratings, slots [tile] each, and 8 of segments and counts."""
+    ratings, slots [tile] each, and 8 of segments and counts; T/U takes at
+    least 27 tile + 256 words: the keys of the tile's 3 tile entries (row,
+    position) and the keyed sum's lists (8 warps x 3 tile entries, 8 x 32
+    group lanes), which it holds after the E-step."""
     k4 = 4 * -(-k // 4)
     ns = 4 * -(-tile // 4) + 4 * (r - 1)
-    floats = 2 * r * k * k4 * k4 + k * k * ns + 3 * k4 * ns + 3 * k * ns + 2 * ns + tile
+    tv = max(k * k * ns, 27 * tile + 256)
+    floats = 2 * r * k * k4 * k4 + tv + 3 * k4 * ns + 3 * k * ns + 2 * ns + tile
     return 4 * (floats + 5 * tile + 8)
 
 

@@ -4,8 +4,8 @@
 // template parameter of both passes:
 //   GatherRows  -- theta[s, gene, :] read through the row's gene id (K3);
 //   StreamRows  -- pre-gathered streams th_pos[b, s*K + k] (K7).
-// Everything else -- the per-row algebra, the theta_hat scatter by gene id
-// and the cross-stat pass -- is one code path.
+// Everything else -- the per-row algebra, the marginal streams and the
+// cross-stat pass -- is one code path.
 //
 // Rows in rating order.  The wrapper hands both passes `order`, a stable
 // permutation of the batch by rating (int32 [B]: sorted position -> row),
@@ -38,9 +38,11 @@
 //   the block is 16 x KC/4 threads (288 at K = 72), two blocks per SM by
 //   __launch_bounds__ and by shared memory (71,424 bytes at K = 50, 110,976
 //   at K = 72; ops/em_large_k.py sweep_plan).
-// It then scatters th_pos * A_pos * w/D into theta_hat (global atomics),
-// adds w log D to loglik, writes scale = w/D in sorted order [S, B] and (the
-// s = 0 blocks) each sorted row's (row, g1, g2, g3) for pass 2.
+// It then writes th_pos * A_pos * w/D as streams [3, B, S*K] in sorted
+// order (slot pos * B + sorted position, columns s * K + k), its block's
+// sum w log D into ll_part [S, blocks] (warp sums, then the two warps' in
+// order), scale = w/D in sorted order [S, B] and (the s = 0 blocks) each
+// sorted row's (row, g1, g2, g3) for pass 2.
 //
 // Pass 2 (cross_kernel), grid (k chunks, S, R x splits): a block owns the
 // cells cross[r][k, :, :] of NK consecutive k and one split of rating r's
@@ -56,11 +58,21 @@
 // compute alone).  The rows' sum is
 // two-level: 64 rows apart, then into the run's total, as the earlier
 // design did, so the error over 131,072 rows stays ~(64 + n/64) ulps.  A
-// block flushes p * cross with one atomic per cell.  127 registers (130
+// block stores p * cross of its cells into its split's slot of p_part [S,
+// splits, K^3 R] (one writer per cell).  127 registers (130
 // with StreamRows; ptxas, no spill), so one block of 364 (K = 50) or 324
 // (K = 72) threads per SM; 85,760 bytes (K = 50) and 114,432 (K = 72) of
 // shared memory.  Keeping the running totals in shared memory instead (97
 // registers, two blocks per SM) ran slower on the H100.
+//
+// No atomics: the wrapper (ops/em_large_k.py) sums the streams into
+// theta_hat with plan_scatter.cu along a gene-sorted plan of the slots
+// (built on the card per call, a stable sort) and ll_part and p_part with
+// csrc/block_sum.cu in block order, so every sum has an order fixed by the
+// rows and the plan, and a call gives the same bits from run to run.  The
+// streams cost 12 B S K bytes of memory (786 MB at B = 131,072, S = 10,
+// K = 50) and a write and a read of them, against ~3 K^3 multiply-adds a
+// row and restart.
 //
 // What bounds it on the H100: ~3 K^3 multiply-adds per row and restart
 // (2 K^3 in pass 1, K^3 in pass 2), float32 outside the tensor cores (67
@@ -208,8 +220,8 @@ __global__ void __launch_bounds__(kMaxThreads1, 2) estep_kernel(
     const float* __restrict__ w,      // [B]
     const int* __restrict__ order,    // [B] sorted position -> row
     const int* __restrict__ off,      // [R + 1] rating segments of order
-    float* __restrict__ theta_hat,    // [S, G, K], zeroed by the caller
-    float* __restrict__ ll,           // [S], zeroed by the caller
+    float* __restrict__ streams,      // [3, B, S*K] in sorted order
+    float* __restrict__ ll_part,      // [S, gridDim.x], zeroed by the caller
     float* __restrict__ scale_out,    // [S, B] in sorted order
     int4* __restrict__ rowinfo,       // [B] (row, g1, g2, g3) in sorted order
     int B, int G, int K, int R, int KC) {
@@ -348,7 +360,6 @@ __global__ void __launch_bounds__(kMaxThreads1, 2) estep_kernel(
   __syncthreads();
   finish_a1(K - 1);
 
-  float* thh_s = theta_hat + (size_t)s * G * K;
   float ll_acc = 0.f;
   if (tid < kRows1) {
     const float wr = wv[tid];
@@ -358,33 +369,39 @@ __global__ void __launch_bounds__(kMaxThreads1, 2) estep_kernel(
   }
   __syncthreads();
 
-  // Positions 2 and 3 from the register tiles, position 1 from th1 A1.
+  // The marginals into the streams: positions 2 and 3 from the register
+  // tiles, position 1 from th1 A1.  Inert rows write 0 (scale 0).
+  const size_t SK = (size_t)gridDim.y * K;
+  float* st1 = streams + (size_t)a * SK + (size_t)s * K;
+  float* st2 = st1 + (size_t)B * SK;
+  float* st3 = st2 + (size_t)B * SK;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = 4 * rg + i;
-    if (row < n && wv[row] != 0.f) {
+    if (row < n) {
       const float sr = sc[row];
-      float* h2 = thh_s + (size_t)gene[kRows1 + row] * K;
-      float* h3 = thh_s + (size_t)gene[2 * kRows1 + row] * K;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = 4 * cg + c;
         if (col < K) {
-          atomicAdd(h2 + col, th2[col * kTS + row] * a2[i][c] * sr);
-          atomicAdd(h3 + col, th3[col * kTS + row] * a3[i][c] * sr);
+          st2[row * SK + col] = th2[col * kTS + row] * a2[i][c] * sr;
+          st3[row * SK + col] = th3[col * kTS + row] * a3[i][c] * sr;
         }
       }
     }
   }
   for (int i = tid; i < n * K; i += nt) {
     const int row = i / K, k = i - row * K;
-    if (wv[row] != 0.f)
-      atomicAdd(thh_s + (size_t)gene[row] * K + k, th1[k * kTS + row] * sc[row]);
+    st1[row * SK + k] = th1[k * kTS + row] * sc[row];
   }
+  // The block's sum w log D: each warp's, then the two warps' in order.
+  __shared__ float ll_w[kRows1 / 32];
   if (tid < kRows1) {
     for (int o = 16; o > 0; o >>= 1) ll_acc += __shfl_down_sync(0xffffffffu, ll_acc, o);
-    if ((tid & 31) == 0) atomicAdd(&ll[s], ll_acc);
+    if ((tid & 31) == 0) ll_w[tid >> 5] = ll_acc;
   }
+  __syncthreads();
+  if (tid == 0) ll_part[(size_t)s * gridDim.x + blockIdx.x] = ll_w[0] + ll_w[1];
 }
 
 // Pass 2.  blockDim.x = NK LQ MQ with LQ = ceil(K / 4), MQ = ceil(K / 8):
@@ -400,7 +417,7 @@ __global__ void __launch_bounds__(kMaxThreads2, 1) cross_kernel(
     const int4* __restrict__ rowinfo, // [B] from pass 1
     const float* __restrict__ scale,  // [S, B] from pass 1, sorted order
     const int* __restrict__ off,      // [R + 1]
-    float* __restrict__ p_hat,        // [S, K, K, K, R], zeroed by the caller
+    float* __restrict__ p_part,       // [S, splits, K, K, K, R], zeroed by the caller
     int B, int K, int R, int NK, int splits, int vec) {
   const int s = blockIdx.y;
   const int r = blockIdx.z / splits, split = blockIdx.z - r * splits;
@@ -514,17 +531,19 @@ __global__ void __launch_bounds__(kMaxThreads2, 1) cross_kernel(
   }
 
   if (k < K) {
-    const size_t base = ((size_t)s * K + k) * K;
+    const size_t cells = (size_t)K * K * K * R;
+    const float* p_s = p + (size_t)s * cells;
+    float* pp = p_part + ((size_t)s * splits + split) * cells;
+    const size_t base = (size_t)k * K;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int l = 4 * lq + i;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int m = 8 * mq + j;
-        const float v = acc[i][j];
-        if (l < K && m < K && v != 0.f) {
+        if (l < K && m < K) {
           const size_t idx = ((base + l) * K + m) * R + r;
-          atomicAdd(&p_hat[idx], p[idx] * v);
+          pp[idx] = p_s[idx] * acc[i][j];
         }
       }
     }
@@ -539,14 +558,15 @@ int set_smem(Kernel kernel, int smem_bytes) {
 }
 
 // Launch the pack and both passes on `stream`; returns cudaGetLastError()
-// (0 on success).  The caller zeroes theta_hat, p_hat and ll, allocates pk
-// [S, R, K, 2, K, KC], scale [S, B] and rowinfo [B, 4], computes the rating
-// order and its segments, and sizes the blocks and shared memory from the
-// host plan (ops/em_large_k.py sweep_plan).
+// (0 on success).  The caller allocates pk [S, R, K, 2, K, KC], streams
+// [3, B, S*K], scale [S, B] and rowinfo [B, 4], zeroes p_part [S, splits,
+// K^3 R] and ll_part [S, ceil(B / 64) + R], computes the rating order and
+// its segments, and sizes the blocks and shared memory from the host plan
+// (ops/em_large_k.py sweep_plan, launch_buffers).
 template <typename Rows>
 int launch(Rows rows, const void* p, const void* trip, const void* w,
-           const void* order, const void* off, void* pk, void* theta_hat,
-           void* p_hat, void* ll, void* scale, void* rowinfo, int S, int B,
+           const void* order, const void* off, void* pk, void* streams,
+           void* p_part, void* ll_part, void* scale, void* rowinfo, int S, int B,
            int G, int K, int R, int KC, int estep_threads, int estep_smem,
            int nk, int splits, int vec, int cross_threads, int cross_smem,
            void* stream) {
@@ -558,14 +578,14 @@ int launch(Rows rows, const void* p, const void* trip, const void* w,
   const int tiles = (B + kRows1 - 1) / kRows1 + R;
   estep_kernel<Rows><<<dim3(tiles, S), estep_threads, estep_smem, st>>>(
       rows, (const float*)pk, (const int*)trip, (const float*)w, (const int*)order,
-      (const int*)off, (float*)theta_hat, (float*)ll, (float*)scale,
+      (const int*)off, (float*)streams, (float*)ll_part, (float*)scale,
       (int4*)rowinfo, B, G, K, R, KC);
   if ((err = (int)cudaGetLastError())) return err;
   if ((err = set_smem(cross_kernel<Rows>, cross_smem))) return err;
   cross_kernel<Rows><<<dim3((K + nk - 1) / nk, S, R * splits), cross_threads,
                        cross_smem, st>>>(
       rows, (const float*)p, (const int4*)rowinfo, (const float*)scale,
-      (const int*)off, (float*)p_hat, B, K, R, nk, splits, vec);
+      (const int*)off, (float*)p_part, B, K, R, nk, splits, vec);
   return (int)cudaGetLastError();
 }
 

@@ -17,10 +17,10 @@
 // whole number of plan tiles, the kernel tile dividing tile_b.
 //
 // What bounds it on the H100: K1's work (~3 K^3 multiply-adds per row and
-// restart against one rating's K^3 slice of p[s], plus 3 K scattered atomic
-// adds into theta_hat), so as for K1 at K = 10 neither the float32 rate nor
-// HBM bandwidth but shared-memory traffic of the K^3 loops and the L2
-// atomics of the scatter.  What the sort buys on the card is room: a block
+// restart against one rating's K^3 slice of p[s], plus placing 3 K
+// marginals per row), so as for K1 at K = 10 neither the float32 rate nor
+// HBM bandwidth but shared-memory traffic of the K^3 loops and the placing
+// of the marginals.  What the sort buys on the card is room: a block
 // holds one rating's slice of p[s] and of its cross-stats instead of all R,
 // which takes K from 20 (K1) to 28 (206,368 bytes of shared memory there
 // with 8-row tiles).
@@ -33,11 +33,15 @@
 //   one plan tile, so it has one rating, read from the table;
 // - the block stages that rating's slice of p[s] (K^3 floats read with
 //   stride R) and zeroes its cross-stats.  Where its run crosses into the
-//   next rating class it first flushes p * cross into that rating's slice
-//   of p_hat[s] (one atomic per nonzero cell), then restages;
+//   next rating class it first adds p * cross into that rating's slice of
+//   its own slot of the partial buffer, then restages;
 // - a tile whose table entry is out of range is skipped whole (inert);
-// - theta_hat gets one atomicAdd per (row, position, k) with nonzero
-//   weight; loglik is reduced per block, then one atomicAdd per block.
+// - as K1 (em_sweep.cu), no atomics: each block owns a slot [LD] of the
+//   partial buffer part [S, blocks, LD], LD = G K + K^3 R + 1, holding its
+//   private theta_hat (the tile's marginals of a gene summed in entry
+//   order and added once, tip::add_marginals), its p * cross and its sum
+//   w log D; csrc/block_sum.cu sums the slots in block order, so the order
+//   of every sum is fixed by the rows and the host plan.
 // Weight-0 rows (a class's pad rows, the common-length pad tiles) are
 // inert: their scale is 0 and they add nothing.  The row load and the
 // p-stat flush are this file's own: em_tile.cuh's read per-row ratings and
@@ -61,17 +65,15 @@ __device__ inline void stage_rating(const tip::Tile& t, const float* __restrict_
   for (int i = threadIdx.x; i < 3 * K4 * t.NS; i += blockDim.x) t.th[i] = 0.f;
 }
 
-// Flush the staged rating's p-stats into p_hat[s][..., r] as p * cross.
-// The caller syncs before the buffers are restaged.
-__device__ inline void flush_rating(const tip::Tile& t, float* __restrict__ ph_s,
+// Add the staged rating's p-stats p * cross into pp[..., r], the block's
+// [K, K, K, R] slot (one writer per cell).  The caller syncs before the
+// buffers are restaged.
+__device__ inline void flush_rating(const tip::Tile& t, float* __restrict__ pp,
                                     int r, int R) {
   const int K = t.K, K4 = t.K4;
   for (int i = threadIdx.x; i < K * K4 * K4; i += blockDim.x) {
-    const float v = t.cross[i];
-    if (v != 0.f) {
-      const int m = i % K4, l = (i / K4) % K4, k = i / (K4 * K4);
-      atomicAdd(&ph_s[((size_t)(k * K + l) * K + m) * R + r], t.p_sm[i] * v);
-    }
+    const int m = i % K4, l = (i / K4) % K4, k = i / (K4 * K4);
+    if (l < K && m < K) pp[((size_t)(k * K + l) * K + m) * R + r] += t.p_sm[i] * t.cross[i];
   }
 }
 
@@ -116,21 +118,18 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_rsorted_kernel(
     const int* __restrict__ trip,     // [B, 3], rating-sorted
     const int* __restrict__ tile_r,   // [B / tile_b]
     const float* __restrict__ w,      // [B]
-    float* __restrict__ theta_hat,    // [S, G, K], zeroed by the caller
-    float* __restrict__ p_hat,        // [S, K, K, K, R], zeroed by the caller
-    float* __restrict__ ll,           // [S], zeroed by the caller
+    float* __restrict__ part,         // [S, gridDim.x, LD], zeroed by the caller
     int B, int G, int K, int R, int tile, int tile_b, int rows_per_block) {
   const int s = blockIdx.y;
   const int K3 = K * K * K;
-  const int tid = threadIdx.x, nt = blockDim.x;
   extern __shared__ float smem[];
   const tip::Tile t = tip::carve(smem, K, 1, tile);
-  const int RS = t.RS;
 
+  const size_t GK = (size_t)G * K, LD = GK + (size_t)K3 * R + 1;
+  float* part_b = part + ((size_t)s * gridDim.x + blockIdx.x) * LD;
+  float* pp = part_b + GK;
   const float* p_s = p + (size_t)s * K3 * R;
-  float* ph_s = p_hat + (size_t)s * K3 * R;
   const float* th_s = theta + (size_t)s * G * K;
-  float* thh_s = theta_hat + (size_t)s * G * K;
   float ll_acc = 0.f;
   int staged = -1;  // the rating whose slice of p[s] is in shared memory
   const int row_begin = blockIdx.x * rows_per_block;
@@ -141,7 +140,7 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_rsorted_kernel(
     if ((unsigned)r >= (unsigned)R) continue;
     if (r != staged) {
       if (staged >= 0) {
-        flush_rating(t, ph_s, staged, R);
+        flush_rating(t, pp, staged, R);
         __syncthreads();
       }
       stage_rating(t, p_s, r, R);
@@ -153,27 +152,22 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_rsorted_kernel(
     load_rows(t, trip, w, th_s, row0, n, G);
     ll_acc += tip::estep(t, n);
 
-    // theta_hat[gene_pos] += th_pos * A_pos * scale, k fastest
-    tip::Walk3 it(tid, nt, K);
-    for (int i = tid; i < 3 * K * n; i += nt, it.next()) {
-      if (t.wv[it.row] != 0.f)
-        atomicAdd(&thh_s[(size_t)t.gene[it.pos * RS + it.row] * K + it.k],
-                  tip::marginal(t, it.pos, it.k, it.row));
-    }
+    tip::add_marginals(t, n, part_b);
     tip::cross_acc(t, n);
   }
-  if (staged >= 0) flush_rating(t, ph_s, staged, R);
-  tip::block_add(ll_acc, ll + s);
+  if (staged >= 0) flush_rating(t, pp, staged, R);
+  tip::block_store(ll_acc, pp + (size_t)K3 * R);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  The
-// caller zeroes theta_hat, p_hat and ll and sizes smem_bytes from the host
-// plan (ops/em_rsorted.py sweep_plan).
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  The grid
+// is ((B + rows_per_block - 1) / rows_per_block, S) blocks; the caller
+// zeroes part (those blocks' slots) and sizes smem_bytes from the host plan
+// (ops/em_rsorted.py sweep_plan, ops/em_bdr.py launch_plan).
 extern "C" int tip_em_rsorted(const void* theta, const void* p, const void* trip,
-                              const void* tile_r, const void* w, void* theta_hat,
-                              void* p_hat, void* ll, int S, int B, int G, int K,
+                              const void* tile_r, const void* w, void* part,
+                              int S, int B, int G, int K,
                               int R, int tile, int tile_b, int rows_per_block,
                               int threads, int smem_bytes, void* stream) {
   if (smem_bytes > 48 * 1024) {
@@ -185,7 +179,7 @@ extern "C" int tip_em_rsorted(const void* theta, const void* p, const void* trip
   const dim3 grid((B + rows_per_block - 1) / rows_per_block, S);
   em_rsorted_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)theta, (const float*)p, (const int*)trip,
-      (const int*)tile_r, (const float*)w, (float*)theta_hat, (float*)p_hat,
-      (float*)ll, B, G, K, R, tile, tile_b, rows_per_block);
+      (const int*)tile_r, (const float*)w, (float*)part, B, G, K, R, tile,
+      tile_b, rows_per_block);
   return (int)cudaGetLastError();
 }

@@ -22,8 +22,9 @@
 // of p, staged by cp.async from a packed copy, and a cross-stat pass of
 // register-tiled rank updates over one rating's rows), what bounds them on
 // the H100 (the float32 FMA rate; ~45% of it in pass 1 at K = 72, ~20% in
-// pass 2; 96 and 127 registers by ptxas), their shared memory and how inert
-// rows are handled are described in csrc/em_large_k.cuh, which K7
+// pass 2; 96 and 127 registers by ptxas), their shared memory, how inert
+// rows are handled and how every sum keeps a fixed order (no atomics) are
+// described in csrc/em_large_k.cuh, which K7
 // (csrc/em_hybrid.cu) shares.
 // Here a row's theta values are read through its gene ids from theta
 // (GatherRows); theta (G S K floats) and p stay L2-resident.
@@ -31,18 +32,18 @@
 #include "em_large_k.cuh"
 
 // Launch the pack and both passes on `stream`; returns cudaGetLastError()
-// (0 on success).  The caller zeroes theta_hat, p_hat and ll, allocates the
-// buffers pk, scale and rowinfo, computes the rating order and its segments
-// (order, off), and sizes the blocks and shared memory from the host plan
-// (ops/em_large_k.py sweep_plan).
+// (0 on success).  The caller allocates and zeroes the buffers and
+// computes the rating order and its segments (order, off) as
+// large_k::launch says, and sizes the blocks and shared memory from the
+// host plan (ops/em_large_k.py sweep_plan, shared by K3 and K7).
 extern "C" int tip_em_sweep_large_k(
     const void* theta, const void* p, const void* trip, const void* w,
-    const void* order, const void* off, void* pk, void* theta_hat, void* p_hat,
-    void* ll, void* scale, void* rowinfo, int S, int B, int G, int K, int R,
+    const void* order, const void* off, void* pk, void* streams, void* p_part,
+    void* ll_part, void* scale, void* rowinfo, int S, int B, int G, int K, int R,
     int KC, int estep_threads, int estep_smem, int nk, int splits, int vec,
     int cross_threads, int cross_smem, void* stream) {
   return large_k::launch(large_k::GatherRows{(const float*)theta, G}, p, trip,
-                         w, order, off, pk, theta_hat, p_hat, ll, scale, rowinfo,
+                         w, order, off, pk, streams, p_part, ll_part, scale, rowinfo,
                          S, B, G, K, R, KC, estep_threads, estep_smem, nk, splits, vec,
                          cross_threads, cross_smem, stream);
 }

@@ -1,8 +1,8 @@
-// The row-tile algebra of the E-step kernels: K1 (em_sweep.cu), the
-// large-G kernels (em_streams.cu, em_bdg.cu) and K9 (em_rsorted.cu).  Each
-// kernel gathers its rows' theta and places the per-row position marginals
-// its own way (K1 and K9 scatter them into theta_hat, the others write
-// streams or a block accumulator).
+// The row-tile algebra of the E-step kernels: K1 and K5a (em_sweep.cu), K4
+// (em_bdg.cu) and K9 (em_rsorted.cu).  Each kernel gathers its rows' theta
+// and places the per-row position marginals its own way (K1 and K9 add them
+// into a block-private theta_hat, add_marginals; K5a writes streams; K4
+// writes streams and a gene block's accumulator).
 //
 // One block owns one restart s; p[s] and its cross-stats stay in shared
 // memory for the block's whole run of rows.  Per tile of `tile` rows the
@@ -11,11 +11,21 @@
 // places the marginals th * A * scale (marginal), and calls cross_acc().
 // Exact float32: no tensor cores, no TF32.
 //
+// Fixed-order sums, no atomics: every sum a kernel on this algebra makes
+// has an order fixed by the inputs and the host plan (tile, rows per block,
+// piece size), not by how warps or blocks are scheduled, so a launch gives
+// the same bits from run to run.  A block writes its p-stats and its
+// sum w log D into its own slot of a partial buffer (flush_part), and
+// csrc/block_sum.cu sums the slots in block order.  A tile's marginals that
+// fall on one key (a gene id, or a gene block's local id) are summed in
+// entry order by one thread (keyed_sum), so each element of a
+// block-private accumulator has one writer.
+//
 // What bounds it on the H100: per row and restart ~3 K^3 multiply-adds (T,
 // A3 and the p cross-stats) against K^3 R values of p[s] in shared memory,
-// plus 3 K scattered atomics into theta_hat.  At K = 10 the products are
-// small, so the limits are shared-memory reads per multiply-add and the L2
-// atomics.  The design:
+// plus 3 K marginals placed per row.  At K = 10 the products are small, so
+// the limits are shared-memory reads per multiply-add and the placing of
+// the marginals.  The design:
 // - Rows sorted by rating inside the block (sort_rows, stable): each
 //   rating's rows take a run of slots that starts at a multiple of 4, so a
 //   quad of 4 slots has one rating (at most 3 pad slots a rating: weight 0,
@@ -42,7 +52,10 @@
 // Shared memory (floats, NS = tile rounded up to 4 plus 4 (R - 1) slots;
 // the host plans ops/em_bdr.py tile_smem_bytes, ops/em_bdg.py _smem_bytes
 // and ops/em_rsorted.py mirror it): 2 R K K4^2 + K^2 NS + 3 K4 NS + 3 K NS
-// + 2 NS + tile floats and 5 tile + 8 ints.
+// + 2 NS + tile floats and 5 tile + 8 ints, where K^2 NS (T/U) is at least
+// 27 tile + 256: once estep() is done with T/U, the same words hold the
+// keys of the tile's 3 tile entries and keyed_sum's per-warp lists until
+// the next tile's estep().
 
 #pragma once
 
@@ -54,12 +67,16 @@ constexpr float kEps = 1e-30f;
 // Threads per block of every kernel on this algebra (ops/em_bdr.py
 // THREADS); its kernels are bounded to 3 blocks per SM (80 registers).
 constexpr int kThreads = 256;
+// keyed_sum's buckets, a warp each.
+constexpr int kBucketBits = 3;
+constexpr int kBuckets = 1 << kBucketBits;
+static_assert(kBuckets * 32 == kThreads, "a bucket per warp");
 
 struct Tile {
   int K, R, tile, RS, K4, NS;
   float* p_sm;   // [R][K][K4][K4]: p[s,k,l,m,r] at ((r*K + k)*K4 + l)*K4 + m
   float* cross;  // [R][K][K4][K4]: the same cells
-  float* TV;     // [K^2][NS]: T[k,l], then U[k,m], by slot
+  float* TV;     // [max(K^2 NS, 27 tile + 256)]: T[k,l], then U[k,m], by slot
   float* th;     // [3][K4][NS]: theta rows per position by slot; 0 past K, in pads
   float* A;      // [3][K][NS]: A1, A2, A3 by slot
   float* wvs;    // [NS]: weights by slot (0 in pads)
@@ -70,6 +87,7 @@ struct Tile {
   int* slot;     // [RS]: row -> slot
   int* seg;      // [8]: rating r's slots are seg[r] .. seg[r + 1]; seg[4 + r]
                  //      its row count
+  int* link;     // over TV: keys [3 tile], then keyed_sum's lists
   float* rest;   // the first float past these buffers (kernel's own use)
 };
 
@@ -86,7 +104,8 @@ __device__ inline Tile carve(float* smem, int K, int R, int tile) {
   t.p_sm = smem;
   t.cross = t.p_sm + R * K * K4 * K4;
   t.TV = t.cross + R * K * K4 * K4;
-  t.th = t.TV + K * K * NS;
+  t.th = t.TV + max(K * K * NS, 27 * tile + 32 * kBuckets);
+  t.link = reinterpret_cast<int*>(t.TV);
   t.A = t.th + 3 * K4 * NS;
   t.wvs = t.A + 3 * K * NS;
   t.scale = t.wvs + NS;
@@ -405,9 +424,9 @@ __device__ inline void cross_acc(const Tile& t, int n) {
   __syncthreads();
 }
 
-// Add the sum of every thread's v to *dst (warp sums, then one atomic per
-// block).
-__device__ inline void block_add(float v, float* __restrict__ dst) {
+// Store the sum of every thread's v into *dst: warp sums, then the warps'
+// sums in warp order, by thread 0 (a fixed order).
+__device__ inline void block_store(float v, float* __restrict__ dst) {
   const int tid = threadIdx.x, nt = blockDim.x;
   __shared__ float red[32];
   for (int off = 16; off > 0; off >>= 1)
@@ -418,24 +437,118 @@ __device__ inline void block_add(float v, float* __restrict__ dst) {
     float w = tid < (nt + 31) / 32 ? red[tid] : 0.f;
     for (int off = 16; off > 0; off >>= 1)
       w += __shfl_down_sync(0xffffffffu, w, off);
-    if (tid == 0) atomicAdd(dst, w);
+    if (tid == 0) *dst = w;
   }
 }
 
-// Flush the block's p-stats into p_hat[s] as p * cross (one atomic per
-// nonzero cell), and its sum w log D into ll[s] (one atomic per block).
-__device__ inline void flush(const Tile& t, float* __restrict__ ph_s,
-                             float ll_acc, float* __restrict__ ll_s) {
+// Write the block's p-stats p * cross into pp, its [K, K, K, R] slot of the
+// partial buffer (every cell), and its sum w log D into *lp.
+__device__ inline void flush_part(const Tile& t, float* __restrict__ pp,
+                                  float ll_acc, float* __restrict__ lp) {
   const int K = t.K, K4 = t.K4, R = t.R;
   for (int c = threadIdx.x; c < R * K * K4 * K4; c += blockDim.x) {
-    const float v = t.cross[c];
-    if (v != 0.f) {
-      const int m = c % K4, l = (c / K4) % K4, rk = c / (K4 * K4);
-      const int k = rk % K, r = rk / K;
-      atomicAdd(&ph_s[((size_t)(k * K + l) * K + m) * R + r], t.p_sm[c] * v);
-    }
+    const int m = c % K4, l = (c / K4) % K4, rk = c / (K4 * K4);
+    const int k = rk % K, r = rk / K;
+    if (l < K && m < K) pp[((size_t)(k * K + l) * K + m) * R + r] = t.p_sm[c] * t.cross[c];
   }
-  block_add(ll_acc, ll_s);
+  block_store(ll_acc, lp);
+}
+
+// The warp whose bucket holds a key: a multiplicative hash's top bits.
+__device__ __forceinline__ int bucket_of(int key) {
+  return (int)(((unsigned)key * 2654435761u) >> (32 - kBucketBits));
+}
+
+// For every distinct key of the tile's E <= 3 tile entries (key[e] >= 0 in
+// t.link; -1: e takes no part; filled and synced by the caller, after
+// estep()), *dst(key, k) += the sum over the key's entries, in entry order,
+// of marg(e, k), for k < K, with one writer per (key, k), so dst may be a
+// block's private accumulator.  No atomics and one barrier (the caller's):
+// - each warp takes the keys that hash to it: it walks the entries 32 at
+//   a time and compacts its own by ballot, in entry order (no two warps
+//   share a key, so none write one element);
+// - per round of 32 of its entries, __match_any_sync groups them by key,
+//   and the items (group, k), group-major, are spread over the warp's
+//   lanes: a lane sums its group's entries in lane (= entry) order and does
+//   the read-modify-write, eight in flight.  A key's later rounds follow in
+//   the same warp, after a __syncwarp.
+// The caller syncs before the next call.
+template <typename Marg, typename Dst>
+__device__ inline void keyed_sum(const Tile& t, int E, int K, Marg marg, Dst dst) {
+  constexpr int kInFlight = 8;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* key = t.link;
+  int* mine = t.link + 3 * t.tile * (1 + warp);               // [3 tile] this warp's entries
+  int* glane = t.link + 3 * t.tile * (1 + kBuckets) + 32 * warp;  // [32] group -> lane
+  int n = 0;
+  for (int r = 0; r < E; r += 32) {
+    const int e = r + lane;
+    const int ke = e < E ? key[e] : -1;
+    const bool in = ke >= 0 && bucket_of(ke) == warp;
+    const unsigned bal = __ballot_sync(kAll, in);
+    if (in) mine[n + __popc(bal & ((1u << lane) - 1))] = e;
+    n += __popc(bal);
+  }
+  __syncwarp();
+  for (int r = 0; r < n; r += 32) {
+    const int e = r + lane < n ? mine[r + lane] : -1;
+    const int kk = e >= 0 ? key[e] : -1 - lane;  // lanes past the list: alone
+    const unsigned grp = __match_any_sync(kAll, kk);
+    const bool leads = e >= 0 && __ffs(grp) - 1 == lane;
+    const unsigned lead = __ballot_sync(kAll, leads);
+    if (leads) glane[__popc(lead & ((1u << lane) - 1))] = lane;
+    __syncwarp();
+    const int items = __popc(lead) * K;
+    for (int i0 = 0; i0 < items; i0 += 32 * kInFlight) {
+      float sum[kInFlight], old[kInFlight];
+      float* to[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int i = i0 + 32 * u + lane;
+        const int gi = i / K, k = i - gi * K;
+        const int src = i < items ? glane[gi] : 0;
+        const unsigned g = __shfl_sync(kAll, grp, src);
+        const int kg = __shfl_sync(kAll, kk, src);
+        to[u] = nullptr;
+        sum[u] = 0.f;
+        if (i < items) {
+          float v = 0.f;
+          for (unsigned m = g; m; m &= m - 1) v += marg(mine[r + __ffs(m) - 1], k);
+          sum[u] = v;
+          to[u] = dst(kg, k);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) old[u] = to[u] ? *to[u] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (to[u]) *to[u] = old[u] + sum[u];
+    }
+    __syncwarp();  // this round's writes and glane before the next round's
+  }
+}
+
+// part[gene * K + k] += the tile's marginals of that gene at index k
+// (entries e = 3 row + pos, rows of nonzero weight), each gene's summed in
+// entry order by keyed_sum: part may be a block's private theta_hat in
+// global memory.  Reads th, A, scale, gene, wv; the caller syncs before the
+// next tile.
+__device__ inline void add_marginals(const Tile& t, int n, float* part) {
+  const int K = t.K, RS = t.RS, E = 3 * n;
+  int* key = t.link;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int row = e / 3, pos = e - 3 * row;
+    key[e] = t.wv[row] != 0.f ? t.gene[pos * RS + row] : -1;
+  }
+  __syncthreads();
+  keyed_sum(
+      t, E, K,
+      [&](int e, int k) {
+        const int row = e / 3;
+        return marginal(t, e - 3 * row, k, row);
+      },
+      [&](int key, int k) { return part + (size_t)key * K + k; });
 }
 
 }  // namespace tip

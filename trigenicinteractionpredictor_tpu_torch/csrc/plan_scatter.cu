@@ -8,7 +8,7 @@
 //   _pallas_stats_large; both run _scatter_tile_kernel.  Same contract:
 //   theta_hat[s, g, k] += sum over the plan's slots of gene g of
 //   vals[slot, s*K + k], vals = the [P*B, S*K] stream of the E-step
-//   (em_streams.cu, em_bdg.cu).  The plan (ops/em_large_g.py
+//   (em_sweep.cu, em_bdg.cu, em_large_k.cuh).  The plan (ops/em_large_g.py
 //   make_scatter_plan) gives the slots in gene order (perm), each slot's
 //   gene as a local id in its wb-gene block (lid) and the blocks' CSR
 //   offsets (off); it has no pad slots.  The TPU kernel's local one-hot

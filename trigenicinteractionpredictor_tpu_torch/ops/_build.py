@@ -32,10 +32,10 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # theta, p, trip, rat, w, theta_hat, p_hat, ll,
+    # theta, p, trip, rat, w, streams (or null), part,
     # S, B, G, K, R, tile, rows_per_block, threads, smem_bytes, stream
-    "tip_em_sweep": [_P] * 8 + [_I] * 9 + [_P],
-    # theta, p, trip, w, order, off, pk, theta_hat, p_hat, ll, scale, rowinfo,
+    "tip_em_sweep": [_P] * 7 + [_I] * 9 + [_P],
+    # theta, p, trip, w, order, off, pk, streams, p_part, ll_part, scale, rowinfo,
     # S, B, G, K, R, KC, estep_threads, estep_smem, nk, splits, vec,
     # cross_threads, cross_smem, stream
     "tip_em_sweep_large_k": [_P] * 12 + [_I] * 13 + [_P],
@@ -43,18 +43,17 @@ _SIGNATURES = {
     "tip_em_hybrid": [_P] * 14 + [_I] * 13 + [_P],
     # theta, p, trip, packed p, out, S, B, G, K, R, ir, KLP, wkl, wr, smem_bytes, stream
     "tip_score": [_P] * 5 + [_I] * 10 + [_P],
-    # theta, p, trip, rat, w, streams, p_hat, ll,
-    # S, B, G, K, R, tile, rows_per_block, threads, smem_bytes, stream
-    "tip_em_streams": [_P] * 8 + [_I] * 9 + [_P],
-    # theta, p, trip, rat, w, g1_lid, g1_off, streams, theta_hat, p_hat, ll,
+    # theta, p, trip, rat, w, g1_lid, g1_off, streams, theta_hat, part_th, part_p,
     # S, B, G, K, R, Q1, wb1, tile, piece_rows, threads, smem_bytes, stream
     "tip_em_bdg": [_P] * 11 + [_I] * 11 + [_P],
     # vals, perm, lid, off, out, part, edge,
     # L, Q, wb, SK, K, G, piece, vec, blocks, smem_bytes, stream
     "tip_plan_scatter": [_P] * 7 + [_I] * 10 + [_P],
-    # theta, p, trip, tile_r, w, theta_hat, p_hat, ll,
+    # theta, p, trip, tile_r, w, part,
     # S, B, G, K, R, tile, tile_b, rows_per_block, threads, smem_bytes, stream
-    "tip_em_rsorted": [_P] * 8 + [_I] * 10 + [_P],
+    "tip_em_rsorted": [_P] * 6 + [_I] * 10 + [_P],
+    # three segments of (part, out, nb, ld, c), S, stream
+    "tip_block_sum": ([_P] * 2 + [_I] * 3) * 3 + [_I, _P],
 }
 
 _lib = None

@@ -56,6 +56,7 @@ from typing import Callable
 import torch
 
 from trigenicinteractionpredictor_tpu_torch.ops import (
+    block_sum,
     em_bd,
     em_bdg,
     em_bdr,
@@ -242,15 +243,21 @@ def stats_fn_for(name: str, k: int = 0, n_ratings: int = 2, row_chunk: int = 0,
 def route_kernels(name: str) -> tuple:
     """The kernel wrappers a sweep of route ``name`` launches, each once a
     sweep (none for the plain sweep); their ``launches`` counts show that
-    the route ran on its kernels."""
+    the route ran on its kernels.  Every kernel route ends in the block sum
+    of its partials, and every route whose E-step writes marginal streams
+    in the plan scatter.  K1 writes streams, and so launches the plan
+    scatter too, only where its private theta_hats would pass
+    ``em_bdr.THETA_PART_BYTES`` (``em_bdr.theta_in_part``): not at any
+    shape its route takes in the bench."""
+    sums = (block_sum.block_sum,)
     kernels = {
         PLAIN_NAME: (),
-        em_bdr.KERNEL_NAME: (em_bdr.em_ensemble_stats,),
-        em_large_k.KERNEL_NAME: (em_large_k.em_ensemble_stats,),
-        em_hybrid.KERNEL_NAME: (em_hybrid.hybrid_stats,),
-        em_bdg.KERNEL_NAME: (em_bdg.bdg_estep, em_bd.plan_scatter),
-        em_bd.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter),
-        em_large_g.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter),
+        em_bdr.KERNEL_NAME: (em_bdr.em_ensemble_stats, *sums),
+        em_large_k.KERNEL_NAME: (em_large_k.em_ensemble_stats, em_bd.plan_scatter, *sums),
+        em_hybrid.KERNEL_NAME: (em_hybrid.hybrid_stats, em_bd.plan_scatter, *sums),
+        em_bdg.KERNEL_NAME: (em_bdg.bdg_estep, em_bd.plan_scatter, *sums),
+        em_bd.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter, *sums),
+        em_large_g.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter, *sums),
     }
     if name not in kernels:
         raise ValueError(f"unknown sweep route {name!r}")

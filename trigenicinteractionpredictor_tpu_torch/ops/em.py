@@ -106,13 +106,22 @@ def _select_rating(x: torch.Tensor, r: torch.Tensor, row_dim: int) -> torch.Tens
     return torch.take_along_dim(x, idx, dim=-1).squeeze(-1)
 
 
-def _scatter_rows(theta: torch.Tensor, vals, triplets: torch.Tensor):
-    """sum_b vals[pos][..., b, :] into [..., G, K] rows by gene id."""
-    out = torch.zeros_like(theta)
-    idx = triplets.long()
-    for pos, v in enumerate(vals):
-        out.index_add_(-2, idx[:, pos], v)
-    return out
+def segment_rows(vals, genes: torch.Tensor, n_genes: int) -> torch.Tensor:
+    """sum over slots of vals[p][..., b, :] into [..., n_genes, K] rows by
+    gene id ``genes`` [B, P] (slot (p, b) to gene genes[b, p]), each gene's
+    slots summed in slot order, position-major.  A stable sort of the ids
+    and one segment sum: the order of every sum is fixed by the ids, on
+    the CPU and on CUDA alike (``index_add_`` sums with atomics on CUDA, in
+    an order that changes from run to run).  On the CPU it sums in
+    ``index_add_``'s order.  Ids must lie in [0, n_genes)."""
+    lead, K = vals[0].shape[:-2], vals[0].shape[-1]
+    ids = genes.long().t().reshape(-1)
+    order = torch.argsort(ids, stable=True)
+    counts = torch.bincount(ids, minlength=n_genes)
+    rows = torch.cat([v.movedim(-2, 0).reshape(v.shape[-2], -1) for v in vals])
+    out = torch.segment_reduce(rows.index_select(0, order), "sum", lengths=counts,
+                               axis=0, unsafe=True)
+    return out.reshape((n_genes,) + tuple(lead) + (K,)).movedim(0, -2)
 
 
 def _row_chunks(batch: Batch, row_chunk: int):
@@ -142,7 +151,7 @@ def em_sufficient_stats(theta, p, batch: Batch, row_chunk: int = 0) -> SweepStat
     if batch.triplets.shape[1] == 2:
         return pair_em_sufficient_stats(theta, p, batch)
     vals, p_hat, loglik = position_marginals(theta, p, batch)
-    theta_hat = _scatter_rows(theta, vals, batch.triplets)
+    theta_hat = segment_rows(vals, batch.triplets, theta.shape[-2])
     return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=loglik)
 
 
@@ -218,7 +227,7 @@ def pair_em_sufficient_stats(theta, p, batch: Batch) -> SweepStats:
 
     scale = w / (D + _EPS)
     sc = scale.unsqueeze(-1)
-    theta_hat = _scatter_rows(theta, (th1 * A1 * sc, th2 * A2 * sc), batch.triplets)
+    theta_hat = segment_rows((th1 * A1 * sc, th2 * A2 * sc), batch.triplets, theta.shape[-2])
 
     onehot = torch.nn.functional.one_hot(r.long(), R).to(theta.dtype)
     th2r = (th2.unsqueeze(-1) * onehot.unsqueeze(-2)).reshape(lead + (B, K * R))

@@ -4,18 +4,18 @@ reference's ``ops/pallas_em_bd.py``: ``_bd_estep``, ``_plan_scatter`` and
 
 A sweep is two kernels:
 
-- :func:`em_streams` (``csrc/em_streams.cu``, K5a; also K6's first stage)
-  computes the E-step per row and restart and writes the three
-  position-marginal streams [3, B, S*K] instead of a theta_hat, plus p_hat
-  and loglik;
+- :func:`em_streams` (K5a, also K6's first stage: ``csrc/em_sweep.cu``,
+  K1's kernel in its streams form, then ``ops/block_sum.py``) computes the
+  E-step per row and restart and writes the three position-marginal
+  streams [3, B, S*K] instead of a theta_hat, plus p_hat and loglik;
 - :func:`plan_scatter` (``csrc/plan_scatter.cu``, K5b; also K6's second
   stage) segment-sums the streams into theta_hat [S, G, K] along the
   batch's scatter plan (``ops/em_large_g.py::make_scatter_plan``).
 
 Each wrapper runs its plain version on a CPU tensor and launches its
 kernel, or raises, on a CUDA tensor.  The plain scatter consumes the
-plan's own slot order and gene ids through ``index_add_``, so a wrong plan
-fails on the CPU too.  The reference's block-diagonal restart algebra
+plan's own slot order and gene ids (a segment sum in plan order), so a
+wrong plan fails on the CPU too.  The reference's block-diagonal restart algebra
 served only the TPU's matrix unit; the port computes each restart's stats
 alone, in exact float32.
 """
@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from trigenicinteractionpredictor_tpu_torch.ops import _build, em_bdr
+from trigenicinteractionpredictor_tpu_torch.ops import _build, block_sum, em_bdr
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
     Batch,
     SweepStats,
@@ -87,42 +87,19 @@ def em_streams(thetas, ps, batch: Batch):
     """(streams [3, B, S*K], p_hat [S,K,K,K,R], loglik [S]) of one sweep."""
     if thetas.device.type == "cpu":
         return em_streams_reference(thetas, ps, batch)
+    plan = em_bdr.check_inputs(thetas, ps, batch, STREAMS_NAME)
     S, G, K = thetas.shape
-    R = ps.shape[-1]
     B = batch.triplets.shape[0]
     dev = thetas.device
-    _build.require("thetas", thetas, torch.float32, (S, G, K), dev)
-    _build.require("ps", ps, torch.float32, (S, K, K, K, R), dev)
-    _build.require("triplets", batch.triplets, torch.int32, (B, 3), dev)
-    _build.require("ratings", batch.ratings, torch.int32, (B,), dev)
-    _build.require("weights", batch.weights, torch.float32, (B,), dev)
-    plan = em_bdr.sweep_plan(K, R)
-    if plan is None:
-        raise ValueError(f"{STREAMS_NAME} does not take K={K}, R={R} "
-                         f"(K must be 1..{em_bdr.MAX_K} and p[s] must fit shared memory)")
-    if S > 65535:
-        raise ValueError(f"{STREAMS_NAME} takes at most 65535 restarts, got {S}")
-    tile, smem = plan
     streams = torch.empty((3, B, S * K), dtype=torch.float32, device=dev)
-    p_hat = torch.zeros_like(ps)
-    ll = torch.zeros(S, dtype=torch.float32, device=dev)
     if B == 0:
-        return streams, p_hat, ll
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_tiles = -(-B // tile)
-    blocks_x = max(1, min(n_tiles, -(-8 * n_sm // S)))
-    rows_per_block = -(-n_tiles // blocks_x) * tile
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.tip_em_streams(
-            thetas.data_ptr(), ps.data_ptr(), batch.triplets.data_ptr(),
-            batch.ratings.data_ptr(), batch.weights.data_ptr(), streams.data_ptr(),
-            p_hat.data_ptr(), ll.data_ptr(), S, B, G, K, R, tile, rows_per_block,
-            em_bdr.THREADS, smem, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, STREAMS_NAME)
+        return streams, torch.zeros_like(ps), torch.zeros(S, dtype=torch.float32, device=dev)
+    part = em_bdr.sweep_launch(thetas, ps, batch, STREAMS_NAME, streams=streams, plan=plan)
     em_streams.launches += 1
-    return streams, p_hat, ll
+    cells = ps[0].numel()
+    p_hat, ll = block_sum.block_sum([block_sum.Segment(part, 0, cells),
+                                     block_sum.Segment(part, cells, 1)])
+    return streams, p_hat.view(ps.shape), ll.view(S)
 
 
 em_streams.launches = 0
@@ -140,12 +117,13 @@ def _plan_genes(lid: torch.Tensor, offsets: torch.Tensor, wb: int) -> torch.Tens
 
 def plan_scatter_reference(streams, perm, lid, offsets, wb: int, n_genes: int,
                            k: int, out=None) -> torch.Tensor:
-    """The plain version of :func:`plan_scatter`: ``index_add_`` of the
-    permuted stream rows by the plan's gene ids."""
+    """The plain version of :func:`plan_scatter`: the permuted stream rows
+    summed by the plan's gene ids, in plan order (a segment sum: the plan
+    sorts the slots by gene)."""
     P, B, SK = streams.shape
     vals = streams.reshape(P * B, SK).index_select(0, perm.long())
-    acc = torch.zeros((n_genes, SK), dtype=streams.dtype, device=streams.device)
-    acc.index_add_(0, _plan_genes(lid, offsets, wb), vals)
+    counts = torch.bincount(_plan_genes(lid, offsets, wb), minlength=n_genes)
+    acc = torch.segment_reduce(vals, "sum", lengths=counts, axis=0)
     theta_hat = acc.reshape(n_genes, SK // k, k).movedim(1, 0)
     return theta_hat.contiguous() if out is None else out.add_(theta_hat)
 

@@ -23,11 +23,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from trigenicinteractionpredictor_tpu_torch.ops import _build, em_bd, em_bdr
+from trigenicinteractionpredictor_tpu_torch.ops import _build, block_sum, em_bd, em_bdr
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
     Batch,
     SweepStats,
     position_marginals,
+    segment_rows,
 )
 from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import _check_ids
 
@@ -117,6 +118,26 @@ def bdg_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
     return None
 
 
+def bdg_pieces(n_rows: int, n_samples: int, tile: int, n_sm: int) -> Tuple[int, int]:
+    """(rows per piece, pieces): pieces of whole tiles for ~8 blocks an SM
+    across the S restarts.  A pure function of the rows, S, the tile and
+    the card's SM count, so on one card it fixes the order of every sum."""
+    n_tiles = -(-n_rows // tile)
+    pieces = max(1, min(n_tiles, -(-_BLOCKS_PER_SM * n_sm // n_samples)))
+    piece_rows = -(-n_tiles // pieces) * tile
+    return piece_rows, -(-n_rows // piece_rows)
+
+
+def bdg_buffers(pieces: int, s: int, k: int, n_ratings: int, wb1: int, dev):
+    """The kernel's partials: part_th [pieces, 2, S, wb1 K] (each piece's
+    head and tail gene block, position 1's share) and part_p [S, pieces,
+    K^3 R + 1] (each block's p * cross and sum w log D).  Every value the
+    kernels read is written first, so neither needs zeroing."""
+    part_th = torch.empty((pieces, 2, s, wb1 * k), dtype=torch.float32, device=dev)
+    part_p = torch.empty((s, pieces, k ** 3 * n_ratings + 1), dtype=torch.float32, device=dev)
+    return part_th, part_p
+
+
 def require_g1_plan(batch: Batch) -> None:
     if batch.g1_lid is None or batch.g1_offsets is None:
         raise ValueError(
@@ -134,8 +155,7 @@ def bdg_estep_reference(thetas, ps, batch: Batch, wb1: int = DEFAULT_WB1):
     trip = torch.stack([gene1.to(batch.triplets.dtype), batch.triplets[:, 1],
                         batch.triplets[:, 2]], dim=1)
     vals, p_hat, loglik = position_marginals(thetas, ps, batch._replace(triplets=trip))
-    theta_hat = torch.zeros_like(thetas)
-    theta_hat.index_add_(-2, gene1, vals[0])
+    theta_hat = segment_rows(vals[:1], gene1.unsqueeze(1), G)
     return em_bd.stack_streams(vals[1:]), theta_hat, p_hat, loglik
 
 
@@ -166,28 +186,27 @@ def bdg_estep(thetas, ps, batch: Batch, wb1: int = DEFAULT_WB1):
     smem = _smem_bytes(K, R, tile, wb1)
     streams = torch.empty((2, B, S * K), dtype=torch.float32, device=dev)
     theta_hat = torch.zeros_like(thetas)
-    p_hat = torch.zeros_like(ps)
-    ll = torch.zeros(S, dtype=torch.float32, device=dev)
     if B == 0:
-        return streams, theta_hat, p_hat, ll
-    # Pieces of rows for ~8 blocks per SM across the S restarts.
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_tiles = -(-B // tile)
-    pieces = max(1, min(n_tiles, -(-_BLOCKS_PER_SM * n_sm // S)))
-    piece_rows = -(-n_tiles // pieces) * tile
+        return streams, theta_hat, torch.zeros_like(ps), torch.zeros(
+            S, dtype=torch.float32, device=dev)
+    piece_rows, pieces = bdg_pieces(B, S, tile, em_bdr.sm_count(dev))
+    part_th, part_p = bdg_buffers(pieces, S, K, R, wb1, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_em_bdg(
             thetas.data_ptr(), ps.data_ptr(), batch.triplets.data_ptr(),
             batch.ratings.data_ptr(), batch.weights.data_ptr(),
             batch.g1_lid.data_ptr(), batch.g1_offsets.data_ptr(), streams.data_ptr(),
-            theta_hat.data_ptr(), p_hat.data_ptr(), ll.data_ptr(),
+            theta_hat.data_ptr(), part_th.data_ptr(), part_p.data_ptr(),
             S, B, G, K, R, Q1, wb1, tile, piece_rows, em_bdr.THREADS, smem,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, ESTEP_NAME)
     bdg_estep.launches += 1
-    return streams, theta_hat, p_hat, ll
+    cells = ps[0].numel()
+    p_hat, ll = block_sum.block_sum([block_sum.Segment(part_p, 0, cells),
+                                     block_sum.Segment(part_p, cells, 1)])
+    return streams, theta_hat, p_hat.view(ps.shape), ll.view(S)
 
 
 bdg_estep.launches = 0

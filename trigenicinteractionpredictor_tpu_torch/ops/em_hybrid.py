@@ -7,14 +7,15 @@ come in pre-gathered as streams ``th1, th2, th3`` [B, S*K] (``th_pos[b,
 s*K + k] = thetas[s, triplets[b, pos], k]``, the reference's ``jnp.take``
 of its [G, S*K] theta), with the triplets [B, 3] int32 (for the scatter),
 ratings [B] int32, weights [B] float32 and ``ps`` [S,K,K,K,R]; out comes
-the :class:`SweepStats` of one sweep, theta_hat [S,G,K] scattered inside
-the kernel.
+the :class:`SweepStats` of one sweep, every sum in an order fixed by the
+rows (K3's ``finish_sweep``: the kernel's marginal streams through the plan
+scatter, its partials through the block sum).
 
 - :func:`gather_rows` builds the streams (a plain ``index_select``, as the
   reference gathers outside its kernel);
 - :func:`hybrid_stats` is the kernel's wrapper: on a CPU tensor it runs
   the plain version, :func:`em_ensemble_stats_reference` (the per-row
-  algebra of ``ops/em.py`` plus ``index_add_``); on a CUDA tensor it
+  algebra of ``ops/em.py`` plus ``segment_rows``); on a CUDA tensor it
   launches the kernel or raises;
 - :func:`em_ensemble_stats` is the route's stats function (K1's signature:
   thetas, ps, batch): gather, then :func:`hybrid_stats`.
@@ -32,7 +33,12 @@ from typing import Tuple
 import torch
 
 from trigenicinteractionpredictor_tpu_torch.ops import _build, em_large_k
-from trigenicinteractionpredictor_tpu_torch.ops.em import Batch, SweepStats, rows_marginals
+from trigenicinteractionpredictor_tpu_torch.ops.em import (
+    Batch,
+    SweepStats,
+    rows_marginals,
+    segment_rows,
+)
 
 KERNEL_NAME = "cuda-em-hybrid"
 DEFAULT_ROW_CHUNK = em_large_k.DEFAULT_ROW_CHUNK
@@ -55,7 +61,7 @@ def em_ensemble_stats_reference(
 ) -> SweepStats:
     """The plain version on the same pre-gathered inputs: the per-row
     algebra of ``ops/em.py`` (:func:`rows_marginals`) over chunks of
-    ``row_chunk`` rows (0: one chunk), scattered with ``index_add_``."""
+    ``row_chunk`` rows (0: one chunk), scattered by ``segment_rows``."""
     S, K = ps.shape[0], ps.shape[1]
     B = th1.shape[0]
     theta_hat = th1.new_zeros((S, n_genes, K))
@@ -66,9 +72,7 @@ def em_ensemble_stats_reference(
         sl = slice(lo, lo + step)
         rows = [t[sl].reshape(-1, S, K).transpose(0, 1) for t in (th1, th2, th3)]
         vals, ph, ll = rows_marginals(*rows, ps, ratings[sl], weights[sl])
-        idx = triplets[sl].long()
-        for pos, v in enumerate(vals):
-            theta_hat.index_add_(1, idx[:, pos], v)
+        theta_hat += segment_rows(vals, triplets[sl], n_genes)
         p_hat += ph
         loglik += ll
     return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=loglik)
@@ -97,20 +101,20 @@ def hybrid_stats(th1, th2, th3, triplets, ratings, weights, ps, n_genes: int) ->
                          f"{em_large_k.MAX_RATINGS})")
     if S > 65535:
         raise ValueError(f"{KERNEL_NAME} takes at most 65535 restarts, got {S}")
-    theta_hat = torch.zeros((S, G, K), dtype=torch.float32, device=dev)
-    p_hat = torch.zeros_like(ps)
-    ll = torch.zeros(S, dtype=torch.float32, device=dev)
     if B == 0:
-        return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
+        return SweepStats(theta_hat=torch.zeros((S, G, K), dtype=torch.float32, device=dev),
+                          p_hat=torch.zeros_like(ps),
+                          loglik=torch.zeros(S, dtype=torch.float32, device=dev))
     order, off = em_large_k.rating_order(ratings, R)
-    pk, scale, rowinfo = em_large_k.launch_buffers(S, B, K, R, plan, dev)
     splits = em_large_k.cross_splits(K, S, B, R, plan, dev)
+    pk, streams, p_part, ll_part, scale, rowinfo = em_large_k.launch_buffers(
+        S, B, K, R, plan, splits, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_em_hybrid(
             th1.data_ptr(), th2.data_ptr(), th3.data_ptr(), ps.data_ptr(),
             triplets.data_ptr(), weights.data_ptr(), order.data_ptr(), off.data_ptr(),
-            pk.data_ptr(), theta_hat.data_ptr(), p_hat.data_ptr(), ll.data_ptr(),
+            pk.data_ptr(), streams.data_ptr(), p_part.data_ptr(), ll_part.data_ptr(),
             scale.data_ptr(), rowinfo.data_ptr(), S, B, G, K, R, plan.kc,
             plan.estep_threads, plan.estep_smem, plan.nk, splits, plan.vec,
             plan.cross_threads,
@@ -118,7 +122,7 @@ def hybrid_stats(th1, th2, th3, triplets, ratings, weights, ps, n_genes: int) ->
         )
     _build.check(err, KERNEL_NAME)
     hybrid_stats.launches += 1
-    return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
+    return em_large_k.finish_sweep(streams, p_part, ll_part, triplets, ratings, order, ps, G)
 
 
 hybrid_stats.launches = 0

@@ -7,7 +7,7 @@ No buffer of the sweep scales with G: an E-step writes per-row position
 marginals (streams), and ``plan_scatter`` segment-sums them into
 theta_hat along a host plan.  The reference runs a per-restart E-step
 kernel here and a block-diagonal one on the bd-plan route; on the card one
-E-step kernel (``csrc/em_streams.cu``) and one scatter kernel
+E-step kernel (``csrc/em_sweep.cu`` in its streams form) and one scatter kernel
 (``csrc/plan_scatter.cu``) serve both, so :func:`large_g_ensemble_stats`
 is ``ops/em_bd.py``'s sweep under its own route name (the reference's
 dispatch gives this route S = 1 at G >= 12,377 and K = 10).
@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from trigenicinteractionpredictor_tpu_torch.ops import em_bd
 from trigenicinteractionpredictor_tpu_torch.ops.em import Batch, SweepStats
@@ -73,6 +74,25 @@ def make_scatter_plan(triplets, n_genes: int, wb: int = DEFAULT_WB,
         n_blocks=n_blocks,
         wb=wb,
     )
+
+
+def device_scatter_plan(genes: torch.Tensor, n_genes: int, wb: int = DEFAULT_WB):
+    """:func:`make_scatter_plan` on the rows' device, as the tensors
+    ``plan_scatter`` takes (perm, lid, offsets; int32), for the slots whose
+    gene ids are ``genes`` (int [P*B], slot p*B + b).  A slot whose id is
+    outside [0, n_genes) adds to no gene: it sorts last, past the plan's
+    genes, and its local id makes its gene n_genes, which the scatter
+    skips.  A stable sort, so the same ids give the same plan on every
+    run."""
+    g = genes.to(torch.int32)  # 32-bit keys: half the radix sort's passes of 64-bit ones
+    key = torch.where((g >= 0) & (g < n_genes), g, torch.full_like(g, n_genes))
+    key, perm = torch.sort(key, stable=True)
+    n_blocks = -(-n_genes // wb)
+    offsets = torch.zeros(n_blocks + 1, dtype=torch.int32, device=g.device)
+    offsets[1:] = torch.cumsum(torch.bincount(key // wb, minlength=n_blocks + 1)[:n_blocks], 0)
+    lid = torch.where(key < n_genes, key % wb,
+                      torch.full_like(key, n_genes - (n_blocks - 1) * wb))
+    return perm.to(torch.int32), lid, offsets
 
 
 def large_g_ensemble_stats(thetas, ps, batch: Batch, wb: int = DEFAULT_WB) -> SweepStats:

@@ -14,7 +14,11 @@ block's shared memory (K1's limit): it runs as an E-step pass over
 k-slices of p and a cross-stat pass that owns slices of p_hat (see the
 source), both over the rows in rating order (:func:`rating_order`, an
 index array the kernel reads rows through).  Exact float32 in both engine
-precision modes.
+precision modes.  No atomics: the kernel writes the rows' marginals as
+streams and its p_hat and loglik as per-block partials, and
+:func:`finish_sweep` sums them in a fixed order (``ops/em_bd.py``'s plan
+scatter along a gene-sorted plan, ``ops/block_sum.py``), so a call gives
+the same bits from run to run.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from trigenicinteractionpredictor_tpu_torch.ops import _build
+from trigenicinteractionpredictor_tpu_torch.ops import _build, block_sum, em_bd, em_large_g
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
     Batch,
     SweepStats,
@@ -108,13 +112,55 @@ def cross_splits(k: int, s: int, n_rows: int, n_ratings: int, plan: Plan, dev) -
     return max(1, min(-(-n_rows // (n_ratings * 64)), -(-8 * n_sm // blocks)))
 
 
-def launch_buffers(s: int, b: int, k: int, n_ratings: int, plan: Plan, dev):
-    """The kernel's scratch: packed p [S, R, K, 2, K, KC], scale [S, B]
-    and rowinfo [B, 4] (both in rating order)."""
-    pk = torch.empty((s, n_ratings, k, 2, k, plan.kc), dtype=torch.float32, device=dev)
-    scale = torch.empty((s, b), dtype=torch.float32, device=dev)
+def estep_blocks(b: int, n_ratings: int) -> int:
+    """Pass 1's blocks along x: a rating's rows cut into tiles of
+    ESTEP_ROWS alone (the kernel launches ceil(B / 64) + R; the spare ones
+    find no tile and return)."""
+    return -(-b // ESTEP_ROWS) + n_ratings
+
+
+def launch_buffers(s: int, b: int, k: int, n_ratings: int, plan: Plan, splits: int, dev):
+    """The kernel's scratch: packed p [S, R, K, 2, K, KC]; the marginal
+    streams [3, B, S*K] in rating order; pass 2's p * cross per row split,
+    p_part [S, splits, K^3 R], and pass 1's sum w log D per block, ll_part
+    [S, estep_blocks] (both zeroed: a block with no rows writes nothing);
+    scale [S, B] and rowinfo [B, 4] (both in rating order)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    pk = torch.empty((s, n_ratings, k, 2, k, plan.kc), **f32)
+    streams = torch.empty((3, b, s * k), **f32)
+    p_part = torch.zeros((s, splits, k ** 3 * n_ratings), **f32)
+    ll_part = torch.zeros((s, estep_blocks(b, n_ratings)), **f32)
+    scale = torch.empty((s, b), **f32)
     rowinfo = torch.empty((b, 4), dtype=torch.int32, device=dev)
-    return pk, scale, rowinfo
+    return pk, streams, p_part, ll_part, scale, rowinfo
+
+
+def sorted_slot_genes(triplets, ratings, order, n_ratings: int) -> torch.Tensor:
+    """The gene id of each stream slot (pos * B + sorted position), -1 for
+    the rows of a rating out of range (sorted last; no pass reads them)."""
+    rows = order.long()
+    g = triplets.index_select(0, rows)
+    r = ratings.index_select(0, rows)
+    ok = ((r >= 0) & (r < n_ratings)).unsqueeze(1)
+    return torch.where(ok, g, torch.full_like(g, -1)).t().reshape(-1)
+
+
+def finish_sweep(streams, p_part, ll_part, triplets, ratings, order, ps,
+                 n_genes: int) -> SweepStats:
+    """The sweep's stats from the kernel's outputs, every sum in a fixed
+    order: theta_hat as the plan scatter of the streams along a gene-sorted
+    plan of the slots (built on the card, a stable sort), p_hat and loglik
+    as the block sums of the partials."""
+    S, K, R = ps.shape[0], ps.shape[1], ps.shape[-1]
+    cells = K ** 3 * R
+    p_hat, ll = block_sum.block_sum([
+        block_sum.Segment(p_part, 0, cells),
+        block_sum.Segment(ll_part.view(S, -1, 1), 0, 1)])
+    genes = sorted_slot_genes(triplets, ratings, order, R)
+    perm, lid, off = em_large_g.device_scatter_plan(genes, n_genes)
+    theta_hat = em_bd.plan_scatter(streams, perm, lid, off, em_large_g.DEFAULT_WB,
+                                   n_genes, K)
+    return SweepStats(theta_hat=theta_hat, p_hat=p_hat.view(ps.shape), loglik=ll.view(S))
 
 
 def em_ensemble_stats_reference(
@@ -148,27 +194,26 @@ def em_ensemble_stats(
                          f"(K must be {MIN_K}..{MAX_K}, R at most {MAX_RATINGS})")
     if S > 65535:
         raise ValueError(f"{KERNEL_NAME} takes at most 65535 restarts, got {S}")
-    theta_hat = torch.zeros_like(thetas)
-    p_hat = torch.zeros_like(ps)
-    ll = torch.zeros(S, dtype=torch.float32, device=dev)
     if B == 0:
-        return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
+        return SweepStats(theta_hat=torch.zeros_like(thetas), p_hat=torch.zeros_like(ps),
+                          loglik=torch.zeros(S, dtype=torch.float32, device=dev))
     order, off = rating_order(batch.ratings, R)
-    pk, scale, rowinfo = launch_buffers(S, B, K, R, plan, dev)
     splits = cross_splits(K, S, B, R, plan, dev)
+    pk, streams, p_part, ll_part, scale, rowinfo = launch_buffers(S, B, K, R, plan, splits, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_em_sweep_large_k(
             thetas.data_ptr(), ps.data_ptr(), batch.triplets.data_ptr(),
             batch.weights.data_ptr(), order.data_ptr(), off.data_ptr(), pk.data_ptr(),
-            theta_hat.data_ptr(), p_hat.data_ptr(), ll.data_ptr(), scale.data_ptr(),
+            streams.data_ptr(), p_part.data_ptr(), ll_part.data_ptr(), scale.data_ptr(),
             rowinfo.data_ptr(), S, B, G, K, R, plan.kc, plan.estep_threads,
             plan.estep_smem, plan.nk, splits, plan.vec, plan.cross_threads, plan.cross_smem,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, KERNEL_NAME)
     em_ensemble_stats.launches += 1
-    return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
+    return finish_sweep(streams, p_part, ll_part, batch.triplets, batch.ratings, order,
+                        ps, G)
 
 
 em_ensemble_stats.launches = 0

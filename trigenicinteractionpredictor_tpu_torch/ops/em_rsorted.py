@@ -14,7 +14,9 @@ the :class:`SweepStats` of one sweep out.
 On a CPU tensor :func:`rsorted_em_ensemble_stats` runs the plain version,
 :func:`rsorted_em_ensemble_stats_reference`; on a CUDA tensor it launches
 the kernel or raises.  A block stages one rating's slice of p[s], not all
-R, so the kernel reaches K = 28 (:data:`MAX_K`; K1 stops at 20).
+R, so the kernel reaches K = 28 (:data:`MAX_K`; K1 stops at 20).  As K1,
+it sums in an order fixed by the rows and the plan: per-block partials,
+added up in block order by ``ops/block_sum.py``.
 
 No dispatch route returns this sweep, as the reference's dispatch never
 returns its kernel: a caller asks for it with ``fit(...,
@@ -30,7 +32,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from trigenicinteractionpredictor_tpu_torch.ops import _build, em_bdr
+from trigenicinteractionpredictor_tpu_torch.ops import _build, block_sum, em_bdr
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
     Batch,
     SweepStats,
@@ -62,6 +64,15 @@ def sweep_plan(k: int, tile_b: int = DEFAULT_TILE_B) -> Optional[Tuple[int, int]
         if tile_b % tile == 0 and smem <= em_bdr.SMEM_LIMIT:
             return tile, smem
     return None
+
+
+def rsorted_launch_plan(n_rows: int, n_samples: int, n_genes: int, k: int, tile: int,
+                        n_sm: int) -> Tuple[int, int]:
+    """(rows per block, blocks) of the kernel: K1's plan, with the blocks
+    cut so that their private theta_hats [S, blocks, G, K] stay within
+    ``em_bdr.THETA_PART_BYTES`` (K9 has no streams form)."""
+    cap = max(1, em_bdr.THETA_PART_BYTES // (4 * n_samples * n_genes * k))
+    return em_bdr.launch_plan(n_rows, n_samples, tile, n_sm, max_blocks=cap)
 
 
 def _tile_table(batch: Batch, tile_b: int) -> torch.Tensor:
@@ -115,28 +126,27 @@ def rsorted_em_ensemble_stats(thetas, ps, batch: Batch,
     if S > 65535:
         raise ValueError(f"{KERNEL_NAME} takes at most 65535 restarts, got {S}")
     tile, smem = plan
-    theta_hat = torch.zeros_like(thetas)
-    p_hat = torch.zeros_like(ps)
-    ll = torch.zeros(S, dtype=torch.float32, device=dev)
     if B == 0:
-        return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
-    # Enough row blocks for ~8 blocks per SM across the S restarts (as K1).
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_tiles = B // tile
-    blocks_x = max(1, min(n_tiles, -(-8 * n_sm // S)))
-    rows_per_block = -(-n_tiles // blocks_x) * tile
+        return SweepStats(theta_hat=torch.zeros_like(thetas), p_hat=torch.zeros_like(ps),
+                          loglik=torch.zeros(S, dtype=torch.float32, device=dev))
+    rows_per_block, blocks = rsorted_launch_plan(B, S, G, K, tile, em_bdr.sm_count(dev))
+    cells = K ** 3 * R
+    part = torch.zeros((S, blocks, G * K + cells + 1), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_em_rsorted(
             thetas.data_ptr(), ps.data_ptr(), batch.triplets.data_ptr(),
-            tile_r.data_ptr(), batch.weights.data_ptr(),
-            theta_hat.data_ptr(), p_hat.data_ptr(), ll.data_ptr(),
+            tile_r.data_ptr(), batch.weights.data_ptr(), part.data_ptr(),
             S, B, G, K, R, tile, tile_b, rows_per_block, em_bdr.THREADS, smem,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, KERNEL_NAME)
     rsorted_em_ensemble_stats.launches += 1
-    return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
+    th, ph, ll = block_sum.block_sum([
+        block_sum.Segment(part, 0, G * K),
+        block_sum.Segment(part, G * K, cells),
+        block_sum.Segment(part, G * K + cells, 1)])
+    return SweepStats(theta_hat=th.view(S, G, K), p_hat=ph.view(ps.shape), loglik=ll.view(S))
 
 
 rsorted_em_ensemble_stats.launches = 0

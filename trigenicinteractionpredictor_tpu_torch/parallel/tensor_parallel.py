@@ -38,9 +38,9 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
     SweepStats,
     _gather,
     _row_chunks,
-    _scatter_rows,
     _select_rating,
     normalize_from_stats,
+    segment_rows,
 )
 from trigenicinteractionpredictor_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -109,8 +109,8 @@ def _tp_chunk_stats(theta, p_blk, batch: Batch, mesh: Mesh):
     D = (th1 * A1).sum(-1)
 
     sc = (w / (D + _EPS)).unsqueeze(-1)
-    theta_hat = _scatter_rows(theta, (th1 * A1 * sc, th2 * A2 * sc, th3 * A3 * sc),
-                              batch.triplets)
+    theta_hat = segment_rows((th1 * A1 * sc, th2 * A2 * sc, th3 * A3 * sc), batch.triplets,
+                             theta.shape[-2])
     onehot = torch.nn.functional.one_hot(r.long(), R).to(theta.dtype)
     th3r = (th3.unsqueeze(-1) * onehot.unsqueeze(-2)).reshape(S, B, K * R)
     cross = torch.matmul((W_blk * sc).transpose(-1, -2), th3r)          # [S, K*Kb, K*R]
