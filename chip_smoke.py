@@ -135,6 +135,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                L trace and final L; phase 11e's four-knob fit run twice on
                the kernel route: the same final L lane for lane, the same
                rounds (from, to, accepted move) and the same final states;
+               14b: one K3 stats call at K = 50 on a classic fit's batch
+               (its plan attached once by the trainer) and one K7 call on a
+               minibatch (K = 25, G = 6000, S = 2; its plan built in the
+               call) under ``torch.profiler``: no device-to-host copy and
+               no stream sync (printed on a line of its own), and the same
+               call under ``torch.cuda.set_sync_debug_mode("error")``;
 15. the studies -- ``tools/stepwise_host_cost``, ``quality_study``,
                ``split_merge_study`` and ``tensor_spectral_study`` at a small
                size on the card, in process, each printing its JSON lines;
@@ -1797,6 +1803,51 @@ def determinism_phase(card: str, dev, train, k1_fit) -> None:
     print(f"[14] phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
 
 
+def sync_free_check(card: str, dev) -> None:
+    """Phase 14b (see the module docstring): K3 and K7 plan on the card with
+    no value read back to the host."""
+    import torch
+
+    from trigenicinteractionpredictor_tpu_torch.ab_kernels import call_profile
+    from trigenicinteractionpredictor_tpu_torch.data import sample_synthetic_dataset
+    from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
+    from trigenicinteractionpredictor_tpu_torch.ops import dispatch, em_hybrid, em_large_k
+    from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, _make_fit_batch
+
+    N, R = HEADLINE["n"], HEADLINE["ratings"]
+    for tag, k, g, s in (("K3 (a classic fit's batch)", 50, 1000, 10),
+                         ("K7 (a minibatch)", 25, 6000, 2)):
+        ds, _, _ = sample_synthetic_dataset(N, g, 10, n_ratings=R, seed=7)
+        st = init_state(g, k, R, samples=s, seed=8, device=dev)
+        if k == 50:
+            stats_fn = dispatch.stats_fn_for(em_large_k.KERNEL_NAME, k, R)
+            batch = _make_fit_batch(ds, stats_fn, dev, JsonlLogger(None, echo=False))
+            assert batch.rating_order is not None and batch.stream_perm is not None
+        else:
+            stats_fn = em_hybrid.em_ensemble_stats
+            batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+        prof = call_profile(lambda: stats_fn(st.theta, st.p, batch))
+        print(f"[14b sync-free] {tag} K={k} G={g} S={s}: {prof['device_ms']:.4f} ms of device "
+              f"time, {prof['htod']} host-to-device and {prof['dtoh']} device-to-host copies, "
+              f"{prof['syncs']} stream syncs in one call (torch.profiler, window "
+              f"{prof['windows']}; {card})")
+        assert prof["device_ms"] > 0, ("the profiler saw no device time", tag, prof)
+        assert prof["dtoh"] == 0 and prof["syncs"] == 0, (tag, prof)
+        # The same call under PyTorch's sync check, which raises on any
+        # operation that waits on the card (a copy to the host included).
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stats_fn(st.theta, st.p, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"[14b sync-free] {tag}: one more call under "
+              f"torch.cuda.set_sync_debug_mode('error') raised nothing ({card})")
+        del st, batch, ds
+        torch.cuda.empty_cache()
+
+
 def studies_phase(card: str) -> None:
     """Phase 15: each ported study of ``tools/`` at a small size on the card,
     in process (its JSON lines checked for their keys)."""
@@ -2235,6 +2286,8 @@ def main() -> int:
 
     # 14. the same bits from run to run
     determinism_phase(card, dev, train, res)
+    # 14b. K3 and K7 plan without a host round trip
+    sync_free_check(card, dev)
 
     # 15. the studies of tools/ at a small size
     studies_phase(card)

@@ -8,8 +8,9 @@ kernels run only on the card; here the host plans are held to the sizes
 the CUDA sources use, the plan built on the card
 (``ops/em_large_g.py::device_scatter_plan``) to the reference's host plan,
 and K4's piece fix-up and the in-block key sum (``csrc/em_bdg.cu``,
-``csrc/em_tile.cuh::bucket_sum``) run as host loops against a direct sum.
-Sums of float64 values in two orders agree to 1e-12.
+``csrc/em_tile.cuh::keyed_sum``, round by round and lane by lane) run as
+host loops against a direct sum.  Sums of float64 values in two orders
+agree to 1e-12; the key sum's float32 models are held to equal bits.
 """
 
 import numpy as np
@@ -261,3 +262,93 @@ def test_block_sum_plain_version_sums_the_segments():
                                    rtol=1e-6)
     with pytest.raises(ValueError, match="segments"):
         block_sum.block_sum([])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 7, 10, 13, 16, 20, 28])
+def test_keyed_sum_steps_its_items_without_a_division(k):
+    """``tip::keyed_sum`` gives lane l the items i = l, l + 32, ... of a
+    round and steps their (group, k) by 32 from (l // K, l % K), with no
+    division in the loop; the steps land on (i // K, i % K) for every item
+    of the largest round (32 groups)."""
+    dg, dk = 32 // k, 32 - (32 // k) * k
+    for lane in range(32):
+        g, kk = lane // k, lane - (lane // k) * k
+        for i in range(lane, 32 * k, 32):
+            assert (g, kk) == divmod(i, k)
+            g, kk = g + dg, kk + dk
+            if kk >= k:
+                g, kk = g + 1, kk - k
+
+
+def _keyed_sum_lanes(keys, vals, old):
+    """``tip::keyed_sum`` lane by lane: per warp and round, the groups in
+    lane order, item (group, k) on lane i % 32 adds its group's entries in
+    entry order and then adds the sum to the destination, one item at a
+    time (float32 throughout)."""
+    out = {key: old[key].copy() for key in set(keys) if key >= 0}
+    k = vals.shape[1]
+    for warp in range(8):
+        mine = [e for e, key in enumerate(keys)
+                if key >= 0 and ((key * 2654435761) & 0xFFFFFFFF) >> 29 == warp]
+        for r in range(0, len(mine), 32):
+            leaders, members = [], {}
+            for e in mine[r:r + 32]:
+                if keys[e] not in members:
+                    leaders.append(keys[e])
+                members.setdefault(keys[e], []).append(e)
+            for lane in range(32):
+                for i in range(lane, len(leaders) * k, 32):
+                    key, kk = leaders[i // k], i % k
+                    v = np.float32(0)
+                    for e in members[key]:
+                        v = np.float32(v + vals[e, kk])
+                    out[key][kk] = np.float32(out[key][kk] + v)
+    return out
+
+
+@pytest.mark.parametrize("k,hub", [(10, None), (10, 96), (3, 150), (20, 40)])
+def test_keyed_sum_lanes_give_the_round_model_bits(k, hub):
+    """The lane-by-lane model of the kernel and the round model of
+    :func:`_keyed_sum` (a key's entries summed in entry order per round,
+    each round's sum added to the running value) give the same float32
+    bits for every (key, k), from a nonzero old value: a hub key whose
+    entries span several rounds of its warp is summed ((old + s1) + s2) +
+    ... in both."""
+    rng = np.random.default_rng(k + (hub or 0))
+    keys = rng.integers(0, 1000, size=192)
+    if hub:
+        keys[rng.permutation(192)[:hub]] = 77
+    keys[3] = -1
+    vals = rng.random((192, k)).astype(np.float32)
+    old = {key: rng.random(k).astype(np.float32) for key in set(keys.tolist())}
+    got = _keyed_sum_lanes(keys.tolist(), vals, old)
+    assert -1 not in got and set(got) == set(keys.tolist()) - {-1}
+    spans = 0
+    for kk in range(k):
+        from_zero = _keyed_sum(keys.tolist(), vals[:, kk])
+        for key, v in got.items():
+            sums = _round_sums(keys.tolist(), vals[:, kk], key)
+            want = old[key][kk]
+            for s in sums:
+                want = np.float32(want + s)
+            assert v[kk] == want, (key, kk)
+            if len(sums) == 1:
+                assert v[kk] == np.float32(old[key][kk] + from_zero[key])
+            spans += len(sums) > 1
+    assert spans > 0 if hub else True
+
+
+def _round_sums(keys, vals, key):
+    """The sums of ``key``'s entries per round of its warp, in order."""
+    warp = ((key * 2654435761) & 0xFFFFFFFF) >> 29
+    mine = [e for e, x in enumerate(keys)
+            if x >= 0 and ((x * 2654435761) & 0xFFFFFFFF) >> 29 == warp]
+    sums = []
+    for r in range(0, len(mine), 32):
+        es = [e for e in mine[r:r + 32] if keys[e] == key]
+        if es:
+            v = np.float32(0)
+            for e in es:
+                v = np.float32(v + vals[e])
+            sums.append(v)
+    return sums

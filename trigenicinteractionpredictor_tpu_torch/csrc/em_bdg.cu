@@ -88,7 +88,6 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
 
   tip::stage_p(t, p + (size_t)s * K3 * R);
   const float* th_s = theta + (size_t)s * G * K;
-  float* thh_s = theta_hat + (size_t)s * G * K;
   float ll_acc = 0.f;
   const int r0 = blockIdx.x * piece_rows;
   const int r1 = min(B, r0 + piece_rows);
@@ -161,14 +160,23 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
     }
 
     // Flush: inside the piece into theta_hat, a head or a tail into part_th.
-    const bool head = g1_off[q] < r0;
-    const bool tail = !head && g1_off[q + 1] > r1;
-    if (head || tail) {
-      float* dst = part_th + ((size_t)(2 * blockIdx.x + (tail ? 1 : 0)) * S + s) * W;
-      for (int i = tid; i < W; i += nt) dst[i] = acc[i];
-    } else {
-      for (int i = tid; i < W; i += nt)
-        if (base + i < GK) thh_s[base + i] = acc[i];
+    // Its addresses are computed here from q and the block's indices, so
+    // none is held in a register across the tile loop (80 registers, no
+    // spill).
+    {
+      const int p0 = blockIdx.x * piece_rows, p1 = min(B, p0 + piece_rows);
+      const bool head = g1_off[q] < p0;
+      const bool tail = !head && g1_off[q + 1] > p1;
+      const size_t at = (size_t)q * wb1 * K;
+      if (head || tail) {
+        float* dst = part_th + ((size_t)(2 * blockIdx.x + (tail ? 1 : 0)) * gridDim.y +
+                                blockIdx.y) * W;
+        for (int i = threadIdx.x; i < W; i += blockDim.x) dst[i] = acc[i];
+      } else {
+        float* out = theta_hat + (size_t)blockIdx.y * G * K + at;
+        for (int i = threadIdx.x; i < W; i += blockDim.x)
+          if (at + i < (size_t)G * K) out[i] = acc[i];
+      }
     }
     __syncthreads();  // before the next gene block overwrites th_blk, acc
   }

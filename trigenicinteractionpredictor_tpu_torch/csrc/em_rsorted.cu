@@ -42,6 +42,8 @@
 //   order and added once, tip::add_marginals), its p * cross and its sum
 //   w log D; csrc/block_sum.cu sums the slots in block order, so the order
 //   of every sum is fixed by the rows and the host plan.
+// A tile ends without a barrier after the cross-stats, as in K1; the
+// block syncs before it flushes a rating's cross-stats.
 // Weight-0 rows (a class's pad rows, the common-length pad tiles) are
 // inert: their scale is 0 and they add nothing.  The row load and the
 // p-stat flush are this file's own: em_tile.cuh's read per-row ratings and
@@ -140,6 +142,7 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_rsorted_kernel(
     if ((unsigned)r >= (unsigned)R) continue;
     if (r != staged) {
       if (staged >= 0) {
+        __syncthreads();  // the last tile's cross-stats
         flush_rating(t, pp, staged, R);
         __syncthreads();
       }
@@ -153,8 +156,9 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_rsorted_kernel(
     ll_acc += tip::estep(t, n);
 
     tip::add_marginals(t, n, part_b);
-    tip::cross_acc(t, n);
+    tip::cross_acc(t, n, false);  // the next tile's first barrier covers it
   }
+  __syncthreads();
   if (staged >= 0) flush_rating(t, pp, staged, R);
   tip::block_store(ll_acc, pp + (size_t)K3 * R);
 }

@@ -47,7 +47,10 @@
 //   + 1.  Per tile the marginals of each gene are summed over the tile's
 //   entries (row, position) of that gene in entry order and added once
 //   into the private theta_hat by one lane (tip::add_marginals: each gene
-//   keyed to one warp, whose lanes take its (gene, k) items): no atomics;
+//   keyed to one warp, whose lanes take its (gene, k) items): no atomics.
+//   The tile ends without a barrier after the cross-stats: warps with no
+//   cross item go on to the next tile's row load, whose first barrier
+//   comes before anything the cross-stats read is overwritten;
 // - csrc/block_sum.cu then sums the blocks' slots in block order into
 //   theta_hat, p_hat and loglik.  So the order of every sum is fixed by the
 //   rows and the plan: the same inputs give the same bits from run to run;
@@ -103,8 +106,9 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_sweep_kernel(
     } else {
       tip::add_marginals(t, n, part_b);
     }
-    tip::cross_acc(t, n);
+    tip::cross_acc(t, n, false);  // the next tile's first barrier covers it
   }
+  __syncthreads();  // the cross-stats, whose cells flush_part reads by another mapping
   tip::flush_part(t, part_b + GK, ll_acc, part_b + GK + (size_t)K3 * R);
 }
 

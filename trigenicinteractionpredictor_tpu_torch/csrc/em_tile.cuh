@@ -44,9 +44,14 @@
 //   multiply-add by zero for a row of another rating.
 // - No % or / per multiply-add; index walks step by constants.
 // - Every kernel on this algebra is 256 threads bounded to 3 blocks per SM
-//   (__launch_bounds__): 80 registers (ptxas; K1, K4 and K5a spill 8 bytes,
-//   K9 none), 70,304 bytes of tile buffers at K = 10, R = 2 (64-row tiles).
-//   Without the bound (115 registers, 2 blocks per SM) K1 ran 9% slower.
+//   (__launch_bounds__, at most 80 registers), 70,304 bytes of tile buffers
+//   at K = 10, R = 2 (64-row tiles).  Without the bound (115 registers, 2
+//   blocks per SM) K1 ran 9% slower.
+// - keyed_sum's read-modify-write of a private theta_hat in global memory
+//   (K1, K9) is not staged: loading the old values by cp.async into T/U
+//   before the cross-stats and finishing after them cost more in shared
+//   memory traffic than the L2 wait it hid (PERF.md, section 6); three blocks
+//   an SM already overlap the wait.
 // - The next tile's rows are not gathered while this one computes: a second
 //   theta buffer (+9.8 KB at K = 10) would leave 2 blocks per SM, not 3.
 // Shared memory (floats, NS = tile rounded up to 4 plus 4 (R - 1) slots;
@@ -372,8 +377,11 @@ __device__ __forceinline__ float marginal(const Tile& t, int pos, int k, int row
 
 // cross[r][k,l,m] += sum over rating r's slots of th1[k] scale th2[l] th3[m]:
 // items (m quad, l quad, k, r), each over its rating's slots only.  Reads
-// th, scale and seg; leaves synced.
-__device__ inline void cross_acc(const Tile& t, int n) {
+// th, scale and seg; leaves synced unless `sync` is false (K1, K9: the next
+// tile's load rows write nothing these read before their first barrier,
+// so warps with no cross item go on to them; the caller syncs before it
+// reads the cross-stats).
+__device__ inline void cross_acc(const Tile& t, int n, bool sync = true) {
   const int K = t.K, K4 = t.K4, NS = t.NS, LQ = t.K4 >> 2;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* th1 = t.th;
@@ -421,7 +429,7 @@ __device__ inline void cross_acc(const Tile& t, int n) {
       *c4 = v;
     }
   }
-  __syncthreads();
+  if (sync) __syncthreads();
 }
 
 // Store the sum of every thread's v into *dst: warp sums, then the warps'
@@ -463,19 +471,22 @@ __device__ __forceinline__ int bucket_of(int key) {
 // t.link; -1: e takes no part; filled and synced by the caller, after
 // estep()), *dst(key, k) += the sum over the key's entries, in entry order,
 // of marg(e, k), for k < K, with one writer per (key, k), so dst may be a
-// block's private accumulator.  No atomics and one barrier (the caller's):
+// block's private accumulator (in global memory, K1 and K9, or shared, K4).
+// No atomics and one barrier (the caller's):
 // - each warp takes the keys that hash to it: it walks the entries 32 at
 //   a time and compacts its own by ballot, in entry order (no two warps
 //   share a key, so none write one element);
 // - per round of 32 of its entries, __match_any_sync groups them by key,
 //   and the items (group, k), group-major, are spread over the warp's
-//   lanes: a lane sums its group's entries in lane (= entry) order and does
-//   the read-modify-write, eight in flight.  A key's later rounds follow in
-//   the same warp, after a __syncwarp.
+//   lanes, item i on lane i % 32 (stepped without a division): a lane sums
+//   its group's entries in lane (= entry) order and adds the sum to *dst,
+//   one item at a time (the other warps and blocks of the SM cover the
+//   load's wait; eight loads in flight took more registers and more time).
+//   A key's later rounds follow in the same warp, after a __syncwarp, so a
+//   key whose entries span rounds is summed ((old + s1) + s2) + ...
 // The caller syncs before the next call.
 template <typename Marg, typename Dst>
 __device__ inline void keyed_sum(const Tile& t, int E, int K, Marg marg, Dst dst) {
-  constexpr int kInFlight = 8;
   constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* key = t.link;
@@ -491,6 +502,8 @@ __device__ inline void keyed_sum(const Tile& t, int E, int K, Marg marg, Dst dst
     n += __popc(bal);
   }
   __syncwarp();
+  // Lane l takes items i = l, l + 32, ...: (group gi, index k) of i = gi K + k.
+  const int dg = 32 / K, dk = 32 - dg * K, g0 = lane / K, k0 = lane - g0 * K;
   for (int r = 0; r < n; r += 32) {
     const int e = r + lane < n ? mine[r + lane] : -1;
     const int kk = e >= 0 ? key[e] : -1 - lane;  // lanes past the list: alone
@@ -500,30 +513,23 @@ __device__ inline void keyed_sum(const Tile& t, int E, int K, Marg marg, Dst dst
     if (leads) glane[__popc(lead & ((1u << lane) - 1))] = lane;
     __syncwarp();
     const int items = __popc(lead) * K;
-    for (int i0 = 0; i0 < items; i0 += 32 * kInFlight) {
-      float sum[kInFlight], old[kInFlight];
-      float* to[kInFlight];
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int i = i0 + 32 * u + lane;
-        const int gi = i / K, k = i - gi * K;
-        const int src = i < items ? glane[gi] : 0;
-        const unsigned g = __shfl_sync(kAll, grp, src);
-        const int kg = __shfl_sync(kAll, kk, src);
-        to[u] = nullptr;
-        sum[u] = 0.f;
-        if (i < items) {
-          float v = 0.f;
-          for (unsigned m = g; m; m &= m - 1) v += marg(mine[r + __ffs(m) - 1], k);
-          sum[u] = v;
-          to[u] = dst(kg, k);
-        }
+    int gi = g0, k = k0;
+    for (int i0 = 0; i0 < items; i0 += 32) {
+      const bool mine_item = i0 + lane < items;
+      const int src = mine_item ? glane[gi] : 0;
+      const unsigned g = __shfl_sync(kAll, grp, src);
+      const int kg = __shfl_sync(kAll, kk, src);
+      if (mine_item) {
+        float v = 0.f;
+        for (unsigned m = g; m; m &= m - 1) v += marg(mine[r + __ffs(m) - 1], k);
+        *dst(kg, k) += v;
       }
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) old[u] = to[u] ? *to[u] : 0.f;
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u)
-        if (to[u]) *to[u] = old[u] + sum[u];
+      gi += dg;
+      k += dk;
+      if (k >= K) {
+        k -= K;
+        ++gi;
+      }
     }
     __syncwarp();  // this round's writes and glane before the next round's
   }

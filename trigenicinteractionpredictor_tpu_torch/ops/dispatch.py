@@ -43,7 +43,8 @@ asks for it with ``fit(..., stats_fn=em_rsorted.stats_fn(tile_b))``.
 The returned function takes (thetas [S,G,K], ps [S,...,R], batch) and
 carries ``kernel_name``, which the trainer records in events, checkpoints
 and ``FitResult``; a plan route's function also carries ``needs_plan`` or
-``needs_g1plan`` and its block widths, and the trainer attaches the plans.
+``needs_g1plan`` and its block widths, K3's ``needs_stream_plan``, and the
+trainer attaches the plans.
 ``route_kernels`` names the kernel wrappers each route launches, whose
 counts show that a sweep ran on its kernels.
 """

@@ -43,7 +43,11 @@ class Batch(NamedTuple):
     pad slots and no per-tile tables: a gene-sorted slot order with CSR
     offsets per gene block.  ``tile_rating`` is the rating of each tile of
     rating-sorted rows (``ops/em_rsorted.py``), the reference's field of
-    that name.
+    that name.  The ``rating_*`` and ``stream_*`` fields are K3's plan, a
+    classic fit's once (``ops/em_large_k.py::StreamPlan``; the reference
+    has none): the rows' rating order, and the gene-sorted plan of the
+    marginal streams the kernel writes in that order, in the form of the
+    ``scatter_*`` fields.
     """
 
     triplets: torch.Tensor
@@ -55,6 +59,11 @@ class Batch(NamedTuple):
     g1_lid: Optional[torch.Tensor] = None           # int32 [B] g1 - block * wb1
     g1_offsets: Optional[torch.Tensor] = None       # int32 [Q1+1] CSR of rows
     tile_rating: Optional[torch.Tensor] = None      # int32 [n_tiles]
+    rating_order: Optional[torch.Tensor] = None     # int32 [B] rows stably sorted by rating
+    rating_offsets: Optional[torch.Tensor] = None   # int32 [R+1] rating r at [off[r], off[r+1])
+    stream_perm: Optional[torch.Tensor] = None      # int32 [3B] stream slots, gene-sorted
+    stream_lid: Optional[torch.Tensor] = None       # int32 [3B] gene - block * wb
+    stream_offsets: Optional[torch.Tensor] = None   # int32 [Q+1] CSR per gene block
 
 
 class SweepStats(NamedTuple):

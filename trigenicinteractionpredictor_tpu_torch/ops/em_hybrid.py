@@ -105,7 +105,9 @@ def hybrid_stats(th1, th2, th3, triplets, ratings, weights, ps, n_genes: int) ->
         return SweepStats(theta_hat=torch.zeros((S, G, K), dtype=torch.float32, device=dev),
                           p_hat=torch.zeros_like(ps),
                           loglik=torch.zeros(S, dtype=torch.float32, device=dev))
-    order, off = em_large_k.rating_order(ratings, R)
+    # A minibatch's rows change every step: its plan is built now, on the
+    # card, with no value read back to the host.
+    sp = em_large_k.stream_plan(triplets, ratings, R, G)
     splits = em_large_k.cross_splits(K, S, B, R, plan, dev)
     pk, streams, p_part, ll_part, scale, rowinfo = em_large_k.launch_buffers(
         S, B, K, R, plan, splits, dev)
@@ -113,7 +115,7 @@ def hybrid_stats(th1, th2, th3, triplets, ratings, weights, ps, n_genes: int) ->
     with torch.cuda.device(dev):
         err = lib.tip_em_hybrid(
             th1.data_ptr(), th2.data_ptr(), th3.data_ptr(), ps.data_ptr(),
-            triplets.data_ptr(), weights.data_ptr(), order.data_ptr(), off.data_ptr(),
+            triplets.data_ptr(), weights.data_ptr(), sp.order.data_ptr(), sp.off.data_ptr(),
             pk.data_ptr(), streams.data_ptr(), p_part.data_ptr(), ll_part.data_ptr(),
             scale.data_ptr(), rowinfo.data_ptr(), S, B, G, K, R, plan.kc,
             plan.estep_threads, plan.estep_smem, plan.nk, splits, plan.vec,
@@ -122,7 +124,7 @@ def hybrid_stats(th1, th2, th3, triplets, ratings, weights, ps, n_genes: int) ->
         )
     _build.check(err, KERNEL_NAME)
     hybrid_stats.launches += 1
-    return em_large_k.finish_sweep(streams, p_part, ll_part, triplets, ratings, order, ps, G)
+    return em_large_k.finish_sweep(streams, p_part, ll_part, sp, ps, G)
 
 
 hybrid_stats.launches = 0

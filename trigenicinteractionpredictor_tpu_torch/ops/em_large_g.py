@@ -83,13 +83,14 @@ def device_scatter_plan(genes: torch.Tensor, n_genes: int, wb: int = DEFAULT_WB)
     outside [0, n_genes) adds to no gene: it sorts last, past the plan's
     genes, and its local id makes its gene n_genes, which the scatter
     skips.  A stable sort, so the same ids give the same plan on every
-    run."""
+    run; the offsets are searches of the sorted ids (block q starts at the
+    first id >= q wb), so nothing is read back to the host."""
     g = genes.to(torch.int32)  # 32-bit keys: half the radix sort's passes of 64-bit ones
     key = torch.where((g >= 0) & (g < n_genes), g, torch.full_like(g, n_genes))
     key, perm = torch.sort(key, stable=True)
     n_blocks = -(-n_genes // wb)
-    offsets = torch.zeros(n_blocks + 1, dtype=torch.int32, device=g.device)
-    offsets[1:] = torch.cumsum(torch.bincount(key // wb, minlength=n_blocks + 1)[:n_blocks], 0)
+    starts = torch.arange(n_blocks + 1, dtype=torch.int32, device=g.device) * wb
+    offsets = torch.searchsorted(key, starts, out_int32=True)
     lid = torch.where(key < n_genes, key % wb,
                       torch.full_like(key, n_genes - (n_blocks - 1) * wb))
     return perm.to(torch.int32), lid, offsets

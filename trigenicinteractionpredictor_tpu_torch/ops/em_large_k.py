@@ -19,6 +19,15 @@ streams and its p_hat and loglik as per-block partials, and
 :func:`finish_sweep` sums them in a fixed order (``ops/em_bd.py``'s plan
 scatter along a gene-sorted plan, ``ops/block_sum.py``), so a call gives
 the same bits from run to run.
+
+The rating order and the gene-sorted plan of the streams' slots form the
+call's :class:`StreamPlan` (:func:`stream_plan`): stable sorts on the rows'
+device, their offsets by ``torch.searchsorted`` on the sorted keys, so no
+value comes back to the host and the call never waits on the card.  A
+classic fit's rows never change, so the trainer builds the plan once per
+fit and attaches it to the batch (``Batch.rating_order`` .. ``stream_offsets``;
+:data:`em_ensemble_stats` carries ``needs_stream_plan``); a batch without
+one (a stepwise minibatch) gets its plan on every call.
 """
 
 from __future__ import annotations
@@ -95,13 +104,15 @@ def rating_order(ratings: torch.Tensor, n_ratings: int):
     sorted position -> row) and the rating segments of it (int32 [R + 1]:
     rating r at sorted positions off[r] .. off[r + 1]).  Rows with a rating
     outside 0..R-1 sort last, past off[R].  Planning, on the rows' device:
-    it moves no row data."""
+    it moves no row data, and it reads nothing back to the host (the
+    offsets are searches of the sorted keys, where a bincount would size
+    its output from the keys' maximum)."""
     key = torch.where((ratings >= 0) & (ratings < n_ratings), ratings,
-                      torch.full_like(ratings, n_ratings)).long()
-    order = torch.argsort(key, stable=True).to(torch.int32)
-    off = torch.zeros(n_ratings + 1, dtype=torch.int32, device=ratings.device)
-    off[1:] = torch.cumsum(torch.bincount(key, minlength=n_ratings + 1)[:n_ratings], 0)
-    return order, off
+                      torch.full_like(ratings, n_ratings)).to(torch.int32)
+    key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(n_ratings + 1, dtype=torch.int32, device=ratings.device)
+    off = torch.searchsorted(key, bounds, out_int32=True)
+    return order.to(torch.int32), off
 
 
 def cross_splits(k: int, s: int, n_rows: int, n_ratings: int, plan: Plan, dev) -> int:
@@ -145,21 +156,57 @@ def sorted_slot_genes(triplets, ratings, order, n_ratings: int) -> torch.Tensor:
     return torch.where(ok, g, torch.full_like(g, -1)).t().reshape(-1)
 
 
-def finish_sweep(streams, p_part, ll_part, triplets, ratings, order, ps,
+class StreamPlan(NamedTuple):
+    """A call's row and slot order: the rating order of the rows and the
+    gene-sorted plan of the streams' slots (slot pos * B + sorted position)
+    in ``em_bd.plan_scatter``'s form, blocks of ``em_large_g.DEFAULT_WB``
+    genes."""
+
+    order: torch.Tensor    # int32 [B] sorted position -> row
+    off: torch.Tensor      # int32 [R + 1] rating r at sorted positions off[r] ..
+    perm: torch.Tensor     # int32 [3 B] stream slots, gene-sorted
+    lid: torch.Tensor      # int32 [3 B] gene - block * wb of each sorted slot
+    offsets: torch.Tensor  # int32 [Q + 1] CSR of the sorted slots per gene block
+
+
+def stream_plan(triplets, ratings, n_ratings: int, n_genes: int) -> StreamPlan:
+    """The :class:`StreamPlan` of these rows, on their device, with no
+    value read back to the host: :func:`rating_order`, then
+    ``em_large_g.device_scatter_plan`` of :func:`sorted_slot_genes`."""
+    order, off = rating_order(ratings, n_ratings)
+    genes = sorted_slot_genes(triplets, ratings, order, n_ratings)
+    perm, lid, offsets = em_large_g.device_scatter_plan(genes, n_genes)
+    return StreamPlan(order, off, perm, lid, offsets)
+
+
+def with_stream_plan(batch: Batch, plan: StreamPlan) -> Batch:
+    """``batch`` carrying ``plan`` (built for exactly its rows)."""
+    return batch._replace(rating_order=plan.order, rating_offsets=plan.off,
+                          stream_perm=plan.perm, stream_lid=plan.lid,
+                          stream_offsets=plan.offsets)
+
+
+def batch_stream_plan(batch: Batch, n_ratings: int, n_genes: int) -> StreamPlan:
+    """The batch's attached plan, else one built now for its rows."""
+    if batch.rating_order is not None:
+        return StreamPlan(batch.rating_order, batch.rating_offsets, batch.stream_perm,
+                          batch.stream_lid, batch.stream_offsets)
+    return stream_plan(batch.triplets, batch.ratings, n_ratings, n_genes)
+
+
+def finish_sweep(streams, p_part, ll_part, plan: StreamPlan, ps,
                  n_genes: int) -> SweepStats:
     """The sweep's stats from the kernel's outputs, every sum in a fixed
-    order: theta_hat as the plan scatter of the streams along a gene-sorted
-    plan of the slots (built on the card, a stable sort), p_hat and loglik
-    as the block sums of the partials."""
+    order: theta_hat as the plan scatter of the streams along the plan's
+    gene-sorted slots, p_hat and loglik as the block sums of the
+    partials."""
     S, K, R = ps.shape[0], ps.shape[1], ps.shape[-1]
     cells = K ** 3 * R
     p_hat, ll = block_sum.block_sum([
         block_sum.Segment(p_part, 0, cells),
         block_sum.Segment(ll_part.view(S, -1, 1), 0, 1)])
-    genes = sorted_slot_genes(triplets, ratings, order, R)
-    perm, lid, off = em_large_g.device_scatter_plan(genes, n_genes)
-    theta_hat = em_bd.plan_scatter(streams, perm, lid, off, em_large_g.DEFAULT_WB,
-                                   n_genes, K)
+    theta_hat = em_bd.plan_scatter(streams, plan.perm, plan.lid, plan.offsets,
+                                   em_large_g.DEFAULT_WB, n_genes, K)
     return SweepStats(theta_hat=theta_hat, p_hat=p_hat.view(ps.shape), loglik=ll.view(S))
 
 
@@ -197,14 +244,16 @@ def em_ensemble_stats(
     if B == 0:
         return SweepStats(theta_hat=torch.zeros_like(thetas), p_hat=torch.zeros_like(ps),
                           loglik=torch.zeros(S, dtype=torch.float32, device=dev))
-    order, off = rating_order(batch.ratings, R)
+    sp = batch_stream_plan(batch, R, G)
+    _build.require("rating_order", sp.order, torch.int32, (B,), dev)
+    _build.require("rating_offsets", sp.off, torch.int32, (R + 1,), dev)
     splits = cross_splits(K, S, B, R, plan, dev)
     pk, streams, p_part, ll_part, scale, rowinfo = launch_buffers(S, B, K, R, plan, splits, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.tip_em_sweep_large_k(
             thetas.data_ptr(), ps.data_ptr(), batch.triplets.data_ptr(),
-            batch.weights.data_ptr(), order.data_ptr(), off.data_ptr(), pk.data_ptr(),
+            batch.weights.data_ptr(), sp.order.data_ptr(), sp.off.data_ptr(), pk.data_ptr(),
             streams.data_ptr(), p_part.data_ptr(), ll_part.data_ptr(), scale.data_ptr(),
             rowinfo.data_ptr(), S, B, G, K, R, plan.kc, plan.estep_threads,
             plan.estep_smem, plan.nk, splits, plan.vec, plan.cross_threads, plan.cross_smem,
@@ -212,9 +261,9 @@ def em_ensemble_stats(
         )
     _build.check(err, KERNEL_NAME)
     em_ensemble_stats.launches += 1
-    return finish_sweep(streams, p_part, ll_part, batch.triplets, batch.ratings, order,
-                        ps, G)
+    return finish_sweep(streams, p_part, ll_part, sp, ps, G)
 
 
 em_ensemble_stats.launches = 0
 em_ensemble_stats.kernel_name = KERNEL_NAME
+em_ensemble_stats.needs_stream_plan = True  # the trainer attaches a StreamPlan

@@ -98,6 +98,7 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
 )
 from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import apply_g1_order, make_g1_plan
 from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import make_scatter_plan
+from trigenicinteractionpredictor_tpu_torch.ops.em_large_k import stream_plan, with_stream_plan
 from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (
     apply_rating_sort,
     rating_sort_pad,
@@ -219,7 +220,10 @@ def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
     sweep, rows stably sorted by rating and padded per class to whole plan
     tiles, with the tile table; for bdg, rows in g1 order plus a 2-position
     scatter plan of the reordered rows; for the other plan routes, a
-    3-position scatter plan.  Plans are built once per fit, on the host."""
+    3-position scatter plan.  Plans are built once per fit, on the host;
+    K3's (the rating order and the gene-sorted plan of its streams,
+    ``ops/em_large_k.py::stream_plan``, which its calls would otherwise
+    build every sweep) on the batch's device."""
     trip, rat, w = ds.triplets, ds.ratings, ds.weights
     if getattr(stats_fn, "needs_rsort", False):
         plan = rating_sort_pad(np.asarray(rat), ds.n_ratings, tile=stats_fn.tile_b)
@@ -240,7 +244,12 @@ def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
         log.log("backend", kernel=stats_fn.kernel_name, wb=scatter.wb,
                 plan_rows=int(scatter.perm.shape[0]))
         return make_batch(trip, rat, w, dev, scatter=scatter)
-    return make_batch(trip, rat, w, dev)
+    batch = make_batch(trip, rat, w, dev)
+    if getattr(stats_fn, "needs_stream_plan", False):
+        plan = stream_plan(batch.triplets, batch.ratings, ds.n_ratings, ds.n_genes)
+        log.log("backend", kernel=stats_fn.kernel_name, plan_rows=int(plan.perm.shape[0]))
+        return with_stream_plan(batch, plan)
+    return batch
 
 
 TP_NAME = "jnp-tp"  # the dispatch record of the tensor-parallel sweep (the reference's)
