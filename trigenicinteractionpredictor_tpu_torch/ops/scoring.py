@@ -14,6 +14,7 @@ import torch
 
 from trigenicinteractionpredictor_tpu_torch.models.mmsbm import ModelState
 from trigenicinteractionpredictor_tpu_torch.ops.em import _gather
+from trigenicinteractionpredictor_tpu_torch.utils.tracing import span
 
 
 def predict_proba(state: ModelState, triplets: torch.Tensor) -> torch.Tensor:
@@ -77,32 +78,39 @@ def serve_predict_interaction(
     for ``fast=False``, single states, the digenic family, the CPU and K
     past K2's plan.  Rows go in blocks of ``block_rows``; results stay on
     the device until one copy at the end.  The kernel is exact float32, so
-    both paths agree to rounding.
+    both paths agree to rounding.  Under ``torch.profiler`` a call records
+    the spans ``serve``, ``serve.check_ids``, ``serve.copy_in`` and
+    ``serve.score`` per block, and ``serve.copy_out`` (``utils/tracing.py``).
     """
-    trips = np.asarray(triplets)
-    n = trips.shape[0]
-    if n == 0:
-        return np.zeros((0,), np.float32)
-    G = states.n_genes
-    if trips.min() < 0 or trips.max() >= G:
-        raise ValueError(f"gene ids must lie in [0, {G})")
-    device = states.device
-    ensemble = states.theta.dim() == 3
-    use_kernel = (
-        serve_route(device.type, ensemble, trips.shape[1], states.k, fast) != "torch"
-    )
-    if use_kernel:
-        from trigenicinteractionpredictor_tpu_torch.ops.score import ensemble_score
-
-        thetas, ps = states.theta.contiguous(), states.p.contiguous()
-    out = torch.empty(n, dtype=torch.float32, device=device)
-    block = max(1, min(block_rows, n))
-    for i in range(0, n, block):
-        tr = torch.as_tensor(trips[i : i + block], dtype=torch.int32, device=device)
+    with span("serve"):
+        with span("serve.check_ids"):
+            trips = np.asarray(triplets)
+            n = trips.shape[0]
+            if n == 0:
+                return np.zeros((0,), np.float32)
+            G = states.n_genes
+            if trips.min() < 0 or trips.max() >= G:
+                raise ValueError(f"gene ids must lie in [0, {G})")
+        device = states.device
+        ensemble = states.theta.dim() == 3
+        use_kernel = (
+            serve_route(device.type, ensemble, trips.shape[1], states.k, fast) != "torch"
+        )
         if use_kernel:
-            out[i : i + block] = ensemble_score(thetas, ps, tr, interact_rating)
-        elif ensemble:
-            out[i : i + block] = ensemble_predict_interaction(states, tr, interact_rating)
-        else:
-            out[i : i + block] = predict_interaction(states, tr, interact_rating)
-    return out.cpu().numpy()
+            from trigenicinteractionpredictor_tpu_torch.ops.score import ensemble_score
+
+            thetas, ps = states.theta.contiguous(), states.p.contiguous()
+        out = torch.empty(n, dtype=torch.float32, device=device)
+        block = max(1, min(block_rows, n))
+        for i in range(0, n, block):
+            with span("serve.copy_in"):
+                tr = torch.as_tensor(trips[i : i + block], dtype=torch.int32, device=device)
+            with span("serve.score"):
+                if use_kernel:
+                    out[i : i + block] = ensemble_score(thetas, ps, tr, interact_rating)
+                elif ensemble:
+                    out[i : i + block] = ensemble_predict_interaction(states, tr, interact_rating)
+                else:
+                    out[i : i + block] = predict_interaction(states, tr, interact_rating)
+        with span("serve.copy_out"):
+            return out.cpu().numpy()

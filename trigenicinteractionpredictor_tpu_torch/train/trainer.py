@@ -17,6 +17,12 @@ tiles and the tile table on the batch; stepwise EM sorts every minibatch.
 
 Stepwise EM (``cfg.train.minibatch > 0``): see :func:`_run_stepwise`.
 
+Under ``torch.profiler`` a classic fit records the spans ``fit``;
+``fit.prepare`` (entry to the loop's clock: ``fit.check_ids``,
+``fit.route``, ``fit.init_states``, ``fit.make_batch`` with ``fit.plan``,
+``fit.degrees``); ``fit.ll_fetch`` per L check; ``fit.checkpoint``; and
+``fit.finish`` (final L, gather, the knobs' rounds) -- ``utils/tracing.py``.
+
 The quality knobs, as in the reference: DAEM annealing
 (``anneal_beta0 < 1``) runs each sweep of the ramp through the unchanged
 stats function on (theta^beta, p^beta) and normalizes the unpowered state;
@@ -57,6 +63,7 @@ parallelism at arity 2, with ``minibatch > 0`` or with K not divisible by
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -135,6 +142,7 @@ from trigenicinteractionpredictor_tpu_torch.train.checkpoint import (
 )
 from trigenicinteractionpredictor_tpu_torch.train.stream_prep import StreamPrep
 from trigenicinteractionpredictor_tpu_torch.utils.integrity import check_em_integrity
+from trigenicinteractionpredictor_tpu_torch.utils.tracing import span
 
 
 @dataclass
@@ -226,27 +234,31 @@ def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
     build every sweep) on the batch's device."""
     trip, rat, w = ds.triplets, ds.ratings, ds.weights
     if getattr(stats_fn, "needs_rsort", False):
-        plan = rating_sort_pad(np.asarray(rat), ds.n_ratings, tile=stats_fn.tile_b)
-        trip, rat, w = apply_rating_sort(plan, np.asarray(trip), np.asarray(rat),
-                                         np.asarray(w))
+        with span("fit.plan"):
+            plan = rating_sort_pad(np.asarray(rat), ds.n_ratings, tile=stats_fn.tile_b)
+            trip, rat, w = apply_rating_sort(plan, np.asarray(trip), np.asarray(rat),
+                                             np.asarray(w))
         log.log("backend", kernel=stats_fn.kernel_name, tile_b=stats_fn.tile_b,
                 padded_rows=int(plan.n_rows))
         return make_batch(trip, rat, w, dev, tile_rating=plan.tile_r)
     if getattr(stats_fn, "needs_g1plan", False):
-        g1 = make_g1_plan(trip, ds.n_genes, wb1=stats_fn.wb1)
-        trip, rat, w = apply_g1_order(g1, trip, rat, w)
-        scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb, positions=(1, 2))
+        with span("fit.plan"):
+            g1 = make_g1_plan(trip, ds.n_genes, wb1=stats_fn.wb1)
+            trip, rat, w = apply_g1_order(g1, trip, rat, w)
+            scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb, positions=(1, 2))
         log.log("backend", kernel=stats_fn.kernel_name, wb1=g1.wb1, wb=scatter.wb,
                 g1_blocks=g1.n_blocks, plan_rows=int(scatter.perm.shape[0]))
         return make_batch(trip, rat, w, dev, scatter=scatter, g1=g1)
     if getattr(stats_fn, "needs_plan", False):
-        scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb)
+        with span("fit.plan"):
+            scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb)
         log.log("backend", kernel=stats_fn.kernel_name, wb=scatter.wb,
                 plan_rows=int(scatter.perm.shape[0]))
         return make_batch(trip, rat, w, dev, scatter=scatter)
     batch = make_batch(trip, rat, w, dev)
     if getattr(stats_fn, "needs_stream_plan", False):
-        plan = stream_plan(batch.triplets, batch.ratings, ds.n_ratings, ds.n_genes)
+        with span("fit.plan"):
+            plan = stream_plan(batch.triplets, batch.ratings, ds.n_ratings, ds.n_genes)
         log.log("backend", kernel=stats_fn.kernel_name, plan_rows=int(plan.perm.shape[0]))
         return with_stream_plan(batch, plan)
     return batch
@@ -289,273 +301,284 @@ def fit(
     ``mesh`` -- the mesh of ranks (default: ``cfg.mesh`` over the ranks of
     the default process group, ``parallel/mesh.make_mesh``).
     """
-    _check_scope(cfg, train_ds.n_genes)
-    log = logger or get_logger()
-    tcfg = cfg.train
-    dev = resolve_device(device)
-    if cfg.engine.precision not in ("fast", "strict"):
-        raise ValueError(
-            f"unknown engine precision {cfg.engine.precision!r}; use 'fast' or 'strict'"
-        )
-    if mesh is None:
-        mesh = make_mesh(data=cfg.mesh.data, ensemble=cfg.mesh.ensemble, model=cfg.mesh.model)
-    data_size, ens_size, model_size = (mesh.shape[a] for a in (DATA_AXIS, ENSEMBLE_AXIS,
-                                                               MODEL_AXIS))
-    S, K = tcfg.samples, tcfg.k
-    if S % ens_size != 0:
-        raise ValueError(f"samples={S} must divide by ensemble axis {ens_size}")
-    G, R, arity = train_ds.n_genes, train_ds.n_ratings, train_ds.arity
-    _check_ids(train_ds)
-    stepwise = tcfg.minibatch > 0
-    use_tp = model_size > 1
-    if use_tp:
-        _check_tp(cfg, arity, model_size)
-    # Route with what one rank holds: its restarts and its rows.
-    s_local, rows_local = S // ens_size, -(-train_ds.n_rows // data_size)
+    with span("fit"), contextlib.ExitStack() as phase:
+        phase.enter_context(span("fit.prepare"))
+        _check_scope(cfg, train_ds.n_genes)
+        log = logger or get_logger()
+        tcfg = cfg.train
+        dev = resolve_device(device)
+        if cfg.engine.precision not in ("fast", "strict"):
+            raise ValueError(
+                f"unknown engine precision {cfg.engine.precision!r}; use 'fast' or 'strict'"
+            )
+        if mesh is None:
+            mesh = make_mesh(data=cfg.mesh.data, ensemble=cfg.mesh.ensemble, model=cfg.mesh.model)
+        data_size, ens_size, model_size = (mesh.shape[a] for a in (DATA_AXIS, ENSEMBLE_AXIS,
+                                                                   MODEL_AXIS))
+        S, K = tcfg.samples, tcfg.k
+        if S % ens_size != 0:
+            raise ValueError(f"samples={S} must divide by ensemble axis {ens_size}")
+        G, R, arity = train_ds.n_genes, train_ds.n_ratings, train_ds.arity
+        with span("fit.check_ids"):
+            _check_ids(train_ds)
+        stepwise = tcfg.minibatch > 0
+        use_tp = model_size > 1
+        if use_tp:
+            _check_tp(cfg, arity, model_size)
+        # Route with what one rank holds: its restarts and its rows.
+        s_local, rows_local = S // ens_size, -(-train_ds.n_rows // data_size)
 
-    if use_tp:
-        stats_fn = None
-        log.log("backend", kernel=TP_NAME, model_shards=model_size)
-        kernel = route(dev.type, arity, K, R, s_local, G, n_rows=rows_local)
-        if kernel != PLAIN_NAME:
-            log.log("backend_warning", message=(
-                f"mesh.model > 1 deselects the CUDA kernel ({kernel}): the tensor-parallel "
-                "sweep is plain PyTorch, a memory feature for p and its stats past one "
-                "card's memory, not a speed feature"))
-    elif stats_fn is None:
-        stats_fn = resolve_stats_fn(
-            dev, arity, G, K, s_local, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk,
-            backend=cfg.engine.backend, n_rows=rows_local, static_rows=not stepwise,
-        )
-    if stepwise and (getattr(stats_fn, "needs_plan", False)
-                     or getattr(stats_fn, "needs_g1plan", False)):
-        # A plan route bakes one whole-dataset row order; stepwise reshuffles
-        # the rows every epoch (the reference's trainer.py:228-236).
-        log.log("backend", kernel=PLAIN_NAME, reason="static row order vs stepwise")
-        stats_fn = stats_fn_for(PLAIN_NAME, row_chunk=cfg.engine.jnp_row_chunk or 16384)
-    # Both engine precision modes run exact float32 here: the kernels use
-    # no tensor cores and the plain path runs with TF32 off.
-    dispatch_info = {
-        "kernel": TP_NAME if use_tp else (
-            getattr(stats_fn, "kernel_name", None)
-            or getattr(stats_fn, "__name__", type(stats_fn).__name__)),
-        "tile_b": int(getattr(stats_fn, "tile_b", 0) or 0),
-        "bdr_group": 0,
-        "row_chunk": int(getattr(stats_fn, "row_chunk", 0)),
-        "precision": cfg.engine.precision,
-        "backend": cfg.engine.backend,
-        "device": str(dev),
-    }
-    log.log("dispatch", **dispatch_info)
-    if dev.type == "cuda":
-        # Build (or load) the CUDA kernels now, so set-up stays out of the
-        # fit's wall clock.
-        _build.library()
-        log.log("kernels_built", seconds=_build.build_info["seconds"],
-                cached=_build.build_info["cached"])
-    # Refuse to train on compute that disagrees with the host CPU (a no-op
-    # on the CPU; cached after a process's first fit).
-    check_em_integrity(dev, arity)
-
-    def fresh_states() -> ModelState:
-        if tcfg.init_method == "spectral":
-            t_init = time.perf_counter()
-            th, pp = spectral_init_arrays(train_ds, K, S, seed=tcfg.seed)
-            log.log("init", method="spectral", samples=S,
-                    seconds=time.perf_counter() - t_init)
-            return state_from_numpy(th, pp, dev)
-        return init_state(G, K, R, alpha=tcfg.init_alpha, arity=arity, samples=S,
-                          seed=tcfg.seed, device=dev)
-
-    # Every rank draws (or reads) the same full [S, ...] states, then keeps
-    # its block: a per-rank draw would make the mesh fit differ from the
-    # one-process fit.
-    start_sweep = 0
-    ll_rows: List[np.ndarray] = []
-    resume_extra: dict = {}
-    if init_states is not None:
-        states = state_from_numpy(init_states.theta, init_states.p, dev)
-    elif resume is not None:
-        ck = load_checkpoint(resume, dev)
-        states = ck["states"]
-        start_sweep = ck["sweep"]
-        if ck["ll_trace"].size:
-            ll_rows = list(np.atleast_2d(ck["ll_trace"]))
-        resume_extra = ck["extra"]
-        log.log("resume", path=resume, sweep=start_sweep)
-    else:
-        states = fresh_states()
-    want = (S, G, K)
-    if tuple(states.theta.shape) != want or states.arity != arity:
-        raise ValueError(
-            f"initial states {tuple(states.theta.shape)} / arity {states.arity} "
-            f"do not match samples, genes, k = {want} / arity {arity}"
-        )
-    shard, gather = ((shard_tp_state, gather_tp_states) if use_tp
-                     else (shard_ensemble, gather_states))
-    states = shard(states, mesh)
-    lo, hi = shard_rows(train_ds.n_rows, mesh)
-    if mesh.distributed:
-        log.log("shard", rows=hi - lo, first_row=lo, samples=s_local, **mesh.coords)
-
-    if stepwise:
-        carry = None
-        if resume is not None:
-            if "stepwise_t" in resume_extra:
-                carry = (
-                    SweepStats(*(torch.as_tensor(resume_extra[name], device=dev)
-                                 for name in ("ema_theta_hat", "ema_p_hat", "ema_loglik"))),
-                    float(resume_extra["stepwise_t"]),
+        with span("fit.route"):
+            if use_tp:
+                stats_fn = None
+                log.log("backend", kernel=TP_NAME, model_shards=model_size)
+                kernel = route(dev.type, arity, K, R, s_local, G, n_rows=rows_local)
+                if kernel != PLAIN_NAME:
+                    log.log("backend_warning", message=(
+                        f"mesh.model > 1 deselects the CUDA kernel ({kernel}): the "
+                        "tensor-parallel sweep is plain PyTorch, a memory feature for p and its "
+                        "stats past one card's memory, not a speed feature"))
+            elif stats_fn is None:
+                stats_fn = resolve_stats_fn(
+                    dev, arity, G, K, s_local, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk,
+                    backend=cfg.engine.backend, n_rows=rows_local, static_rows=not stepwise,
                 )
+            if stepwise and (getattr(stats_fn, "needs_plan", False)
+                             or getattr(stats_fn, "needs_g1plan", False)):
+                # A plan route bakes one whole-dataset row order; stepwise reshuffles
+                # the rows every epoch (the reference's trainer.py:228-236).
+                log.log("backend", kernel=PLAIN_NAME, reason="static row order vs stepwise")
+                stats_fn = stats_fn_for(PLAIN_NAME, row_chunk=cfg.engine.jnp_row_chunk or 16384)
+            # Both engine precision modes run exact float32 here: the kernels use
+            # no tensor cores and the plain path runs with TF32 off.
+            dispatch_info = {
+                "kernel": TP_NAME if use_tp else (
+                    getattr(stats_fn, "kernel_name", None)
+                    or getattr(stats_fn, "__name__", type(stats_fn).__name__)),
+                "tile_b": int(getattr(stats_fn, "tile_b", 0) or 0),
+                "bdr_group": 0,
+                "row_chunk": int(getattr(stats_fn, "row_chunk", 0)),
+                "precision": cfg.engine.precision,
+                "backend": cfg.engine.backend,
+                "device": str(dev),
+            }
+            log.log("dispatch", **dispatch_info)
+            if dev.type == "cuda":
+                # Build (or load) the CUDA kernels now, so set-up stays out of the
+                # fit's wall clock.
+                _build.library()
+            # Refuse to train on compute that disagrees with the host CPU (a no-op
+            # on the CPU; cached after a process's first fit).
+            check_em_integrity(dev, arity)
+
+        def fresh_states() -> ModelState:
+            if tcfg.init_method == "spectral":
+                t_init = time.perf_counter()
+                th, pp = spectral_init_arrays(train_ds, K, S, seed=tcfg.seed)
+                log.log("init", method="spectral", samples=S,
+                        seconds=time.perf_counter() - t_init)
+                return state_from_numpy(th, pp, dev)
+            return init_state(G, K, R, alpha=tcfg.init_alpha, arity=arity, samples=S,
+                              seed=tcfg.seed, device=dev)
+
+        # Every rank draws (or reads) the same full [S, ...] states, then keeps
+        # its block: a per-rank draw would make the mesh fit differ from the
+        # one-process fit.
+        start_sweep = 0
+        ll_rows: List[np.ndarray] = []
+        resume_extra: dict = {}
+        with span("fit.init_states"):
+            if init_states is not None:
+                states = state_from_numpy(init_states.theta, init_states.p, dev)
+            elif resume is not None:
+                ck = load_checkpoint(resume, dev)
+                states = ck["states"]
+                start_sweep = ck["sweep"]
+                if ck["ll_trace"].size:
+                    ll_rows = list(np.atleast_2d(ck["ll_trace"]))
+                resume_extra = ck["extra"]
+                log.log("resume", path=resume, sweep=start_sweep)
             else:
-                # A checkpoint without the EMA carry: start afresh (logged),
-                # as the reference does, so a relaunched driver unit runs.
-                log.log("stepwise_restart", ignored_resume=resume)
-                states, start_sweep, ll_rows = shard(fresh_states(), mesh), 0, []
-        return _run_stepwise(
-            cfg, train_ds, states, stats_fn, dev, log, checkpoint_path, mesh,
-            start_epoch=start_sweep, ll_rows=ll_rows, carry=carry,
-            dispatch_info=dispatch_info,
-        )
+                states = fresh_states()
+            want = (S, G, K)
+            if tuple(states.theta.shape) != want or states.arity != arity:
+                raise ValueError(
+                    f"initial states {tuple(states.theta.shape)} / arity {states.arity} "
+                    f"do not match samples, genes, k = {want} / arity {arity}"
+                )
+            shard, gather = ((shard_tp_state, gather_tp_states) if use_tp
+                             else (shard_ensemble, gather_states))
+            states = shard(states, mesh)
+        lo, hi = shard_rows(train_ds.n_rows, mesh)
+        if mesh.distributed:
+            log.log("shard", rows=hi - lo, first_row=lo, samples=s_local, **mesh.coords)
 
-    shard_ds = train_ds if (lo, hi) == (0, train_ds.n_rows) else train_ds.select(slice(lo, hi))
-    if use_tp:
-        batch = make_batch(shard_ds.triplets, shard_ds.ratings, shard_ds.weights, dev)
-    else:
-        batch = _make_fit_batch(shard_ds, stats_fn, dev, log)
-    del shard_ds
-    # The degrees of the whole split, on every rank: normalizing with a
-    # shard's own degrees would be wrong for every gene the shard sees less.
-    degrees = torch.as_tensor(train_ds.degrees(), device=dev)
-    n_real = train_ds.n_real
-    row_chunk = cfg.engine.jnp_row_chunk
-    config_json = cfg.to_json()
-    # Provenance of the init: the seed in the reference's key-data layout.
-    key_data = np.asarray([(tcfg.seed >> 32) & 0xFFFFFFFF, tcfg.seed & 0xFFFFFFFF],
-                          dtype=np.uint32)
-    freq = max(tcfg.likelihood_freq, 1)
-    ce = tcfg.checkpoint_every if checkpoint_path else 0
-
-    def next_boundary(s: int) -> int:
-        b = min(tcfg.sweeps, (s // freq + 1) * freq)
-        if ce > 0:
-            b = min(b, (s // ce + 1) * ce)
-        return b
-
-    def checkpoint(full: ModelState, at_sweep: int) -> None:
-        if mesh.is_coordinator:  # one writer
-            save_checkpoint(
-                checkpoint_path, full, at_sweep,
-                np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
-                key=key_data, config_json=config_json,
-                extra=_dispatch_extra(dispatch_info),
+        if stepwise:
+            carry = None
+            if resume is not None:
+                if "stepwise_t" in resume_extra:
+                    carry = (
+                        SweepStats(*(torch.as_tensor(resume_extra[name], device=dev)
+                                     for name in ("ema_theta_hat", "ema_p_hat", "ema_loglik"))),
+                        float(resume_extra["stepwise_t"]),
+                    )
+                else:
+                    # A checkpoint without the EMA carry: start afresh (logged),
+                    # as the reference does, so a relaunched driver unit runs.
+                    log.log("stepwise_restart", ignored_resume=resume)
+                    states, start_sweep, ll_rows = shard(fresh_states(), mesh), 0, []
+            phase.close()  # fit.prepare ends where the stepwise epochs start
+            return _run_stepwise(
+                cfg, train_ds, states, stats_fn, dev, log, checkpoint_path, mesh,
+                start_epoch=start_sweep, ll_rows=ll_rows, carry=carry,
+                dispatch_info=dispatch_info,
             )
 
-    # DAEM: while sweep < anneal_end, the sweep's stats come from the
-    # powered parameters, written into buffers allocated once per fit.
-    betas = _anneal_schedule(tcfg)
-    anneal_end = 0 if betas is None else (tcfg.anneal_sweeps or max(tcfg.sweeps // 2, 1))
-    buffers = None
-    if betas is not None:
-        log.log("anneal", beta0=tcfg.anneal_beta0, ramp_sweeps=anneal_end)
-        buffers = (torch.empty_like(states.theta), torch.empty_like(states.p))
+        with span("fit.make_batch"):
+            whole = (lo, hi) == (0, train_ds.n_rows)
+            shard_ds = train_ds if whole else train_ds.select(slice(lo, hi))
+            if use_tp:
+                batch = make_batch(shard_ds.triplets, shard_ds.ratings, shard_ds.weights, dev)
+            else:
+                batch = _make_fit_batch(shard_ds, stats_fn, dev, log)
+            del shard_ds
+        # The degrees of the whole split, on every rank: normalizing with a
+        # shard's own degrees would be wrong for every gene the shard sees less.
+        with span("fit.degrees"):
+            degrees = torch.as_tensor(train_ds.degrees(), device=dev)
+        n_real = train_ds.n_real
+        row_chunk = cfg.engine.jnp_row_chunk
+        config_json = cfg.to_json()
+        # Provenance of the init: the seed in the reference's key-data layout.
+        key_data = np.asarray([(tcfg.seed >> 32) & 0xFFFFFFFF, tcfg.seed & 0xFFFFFFFF],
+                              dtype=np.uint32)
+        freq = max(tcfg.likelihood_freq, 1)
+        ce = tcfg.checkpoint_every if checkpoint_path else 0
 
-    def sweep_once(states: ModelState, at: int):
-        beta = None
-        if at < anneal_end:
-            beta = float(betas[at]) if at < len(betas) else 1.0
-        if use_tp:
-            return tp_step(states, batch, degrees, mesh, beta, row_chunk, buffers)
-        return sharded_step(states, batch, degrees, mesh, stats_fn, beta, buffers)
+        def next_boundary(s: int) -> int:
+            b = min(tcfg.sweeps, (s // freq + 1) * freq)
+            if ce > 0:
+                b = min(b, (s // ce + 1) * ce)
+            return b
 
-    prev_check: Optional[np.ndarray] = None
-    pending: Optional[Tuple[int, torch.Tensor]] = None
-    t0 = time.perf_counter()
+        def checkpoint(full: ModelState, at_sweep: int) -> None:
+            if mesh.is_coordinator:  # one writer
+                with span("fit.checkpoint"):
+                    save_checkpoint(
+                        checkpoint_path, full, at_sweep,
+                        np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
+                        key=key_data, config_json=config_json,
+                        extra=_dispatch_extra(dispatch_info),
+                    )
 
-    def flush_pending() -> bool:
-        nonlocal prev_check, pending
-        if pending is None:
-            return False
-        at_sweep, ll = pending
-        pending = None
-        # L of the pre-update state, every restart of the mesh.
-        ll_np = gather_loglik(ll, mesh).cpu().numpy().astype(np.float64)
-        ll_rows.append(ll_np)
-        dt = time.perf_counter() - t0
+        # DAEM: while sweep < anneal_end, the sweep's stats come from the
+        # powered parameters, written into buffers allocated once per fit.
+        betas = _anneal_schedule(tcfg)
+        anneal_end = 0 if betas is None else (tcfg.anneal_sweeps or max(tcfg.sweeps // 2, 1))
+        buffers = None
+        if betas is not None:
+            log.log("anneal", beta0=tcfg.anneal_beta0, ramp_sweeps=anneal_end)
+            buffers = (torch.empty_like(states.theta), torch.empty_like(states.p))
+
+        def sweep_once(states: ModelState, at: int):
+            beta = None
+            if at < anneal_end:
+                beta = float(betas[at]) if at < len(betas) else 1.0
+            if use_tp:
+                return tp_step(states, batch, degrees, mesh, beta, row_chunk, buffers)
+            return sharded_step(states, batch, degrees, mesh, stats_fn, beta, buffers)
+
+        prev_check: Optional[np.ndarray] = None
+        pending: Optional[Tuple[int, torch.Tensor]] = None
+        phase.close()  # fit.prepare ends where the sweep loop's clock starts
+        t0 = time.perf_counter()
+
+        def flush_pending() -> bool:
+            nonlocal prev_check, pending
+            if pending is None:
+                return False
+            with span("fit.ll_fetch"):
+                at_sweep, ll = pending
+                pending = None
+                # L of the pre-update state, every restart of the mesh.
+                ll_np = gather_loglik(ll, mesh).cpu().numpy().astype(np.float64)
+                ll_rows.append(ll_np)
+                dt = time.perf_counter() - t0
+                log.log(
+                    "sweep",
+                    sweep=at_sweep,
+                    ll_best=float(ll_np.max()),
+                    ll_mean=float(ll_np.mean()),
+                    triplets_per_sec=(at_sweep - start_sweep) * n_real / max(dt, 1e-9),
+                )
+                halt = False
+                # While the ramp runs, L rows are the annealed objective: no early
+                # stop until this check and the previous one are past the ramp.
+                if tcfg.tol > 0 and prev_check is not None and at_sweep >= anneal_end + 2 * freq:
+                    if np.all(np.abs(ll_np - prev_check) < tcfg.tol):
+                        halt = True
+                halt = any_rank(halt, mesh, dev)
+                if halt:
+                    log.log("early_stop", sweep=at_sweep, tol=tcfg.tol)
+                prev_check = ll_np
+                return halt
+
+        sweep = start_sweep
+        stop = False
+        while sweep < tcfg.sweeps and not stop:
+            n_inner = next_boundary(sweep) - sweep
+            for i in range(n_inner):
+                states, ll = sweep_once(states, sweep + i)
+            if tcfg.debug_nans and not (
+                torch.isfinite(states.theta).all() and torch.isfinite(states.p).all()
+            ):
+                raise FloatingPointError(f"non-finite parameters after sweep {sweep + n_inner}")
+            sweep += n_inner
+            stop = flush_pending()  # the previous check syncs while this chunk runs
+            if sweep % freq == 0 or sweep == tcfg.sweeps:
+                pending = (sweep, ll)
+            if ce > 0 and sweep % ce == 0:
+                stop = flush_pending() or stop  # keep the trace ordered
+                checkpoint(gather(states, mesh), sweep)
+        stop = flush_pending() or stop
+
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        phase.enter_context(span("fit.finish"))
+        final_ll = (tp_likelihood(states, batch, mesh, row_chunk) if use_tp
+                    else sharded_likelihood(states, batch, mesh, row_chunk))
+        final_ll = gather_loglik(final_ll, mesh).cpu().numpy().astype(np.float64)
+        states = gather(states, mesh)
+        del batch, buffers  # the rounds' sub-fits build their own
+
+        # Split-merge topology jumps first, perturb-and-resweep polish after
+        # (the reference's order); each adds its sub-fits' sweeps, wall time
+        # and L rows.
+        for rounds, stage in ((tcfg.smem_rounds, _smem), (tcfg.refine_rounds, _refine)):
+            if rounds > 0:
+                states, final_ll, extra = stage(cfg, train_ds, dev, log, states, final_ll,
+                                                stats_fn, mesh)
+                sweep += extra["sweeps"]
+                wall += extra["wall"]
+                ll_rows.extend(extra["ll_rows"])
+        n_sweeps = sweep - start_sweep
+        tps = n_sweeps * n_real / max(wall, 1e-9)
         log.log(
-            "sweep",
-            sweep=at_sweep,
-            ll_best=float(ll_np.max()),
-            ll_mean=float(ll_np.mean()),
-            triplets_per_sec=(at_sweep - start_sweep) * n_real / max(dt, 1e-9),
+            "fit_done", sweeps=n_sweeps, wall_s=wall, triplets_per_sec=tps,
+            ll_best=float(final_ll.max()),
         )
-        halt = False
-        # While the ramp runs, L rows are the annealed objective: no early
-        # stop until this check and the previous one are past the ramp.
-        if tcfg.tol > 0 and prev_check is not None and at_sweep >= anneal_end + 2 * freq:
-            if np.all(np.abs(ll_np - prev_check) < tcfg.tol):
-                halt = True
-        halt = any_rank(halt, mesh, dev)
-        if halt:
-            log.log("early_stop", sweep=at_sweep, tol=tcfg.tol)
-        prev_check = ll_np
-        return halt
-
-    sweep = start_sweep
-    stop = False
-    while sweep < tcfg.sweeps and not stop:
-        n_inner = next_boundary(sweep) - sweep
-        for i in range(n_inner):
-            states, ll = sweep_once(states, sweep + i)
-        if tcfg.debug_nans and not (
-            torch.isfinite(states.theta).all() and torch.isfinite(states.p).all()
-        ):
-            raise FloatingPointError(f"non-finite parameters after sweep {sweep + n_inner}")
-        sweep += n_inner
-        stop = flush_pending()  # the previous check syncs while this chunk runs
-        if sweep % freq == 0 or sweep == tcfg.sweeps:
-            pending = (sweep, ll)
-        if ce > 0 and sweep % ce == 0:
-            stop = flush_pending() or stop  # keep the trace ordered
-            checkpoint(gather(states, mesh), sweep)
-    stop = flush_pending() or stop
-
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    final_ll = (tp_likelihood(states, batch, mesh, row_chunk) if use_tp
-                else sharded_likelihood(states, batch, mesh, row_chunk))
-    final_ll = gather_loglik(final_ll, mesh).cpu().numpy().astype(np.float64)
-    states = gather(states, mesh)
-    del batch, buffers  # the rounds' sub-fits build their own
-
-    # Split-merge topology jumps first, perturb-and-resweep polish after
-    # (the reference's order); each adds its sub-fits' sweeps, wall time
-    # and L rows.
-    for rounds, stage in ((tcfg.smem_rounds, _smem), (tcfg.refine_rounds, _refine)):
-        if rounds > 0:
-            states, final_ll, extra = stage(cfg, train_ds, dev, log, states, final_ll,
-                                            stats_fn, mesh)
-            sweep += extra["sweeps"]
-            wall += extra["wall"]
-            ll_rows.extend(extra["ll_rows"])
-    n_sweeps = sweep - start_sweep
-    tps = n_sweeps * n_real / max(wall, 1e-9)
-    log.log(
-        "fit_done", sweeps=n_sweeps, wall_s=wall, triplets_per_sec=tps,
-        ll_best=float(final_ll.max()),
-    )
-    if checkpoint_path:
-        checkpoint(states, sweep)
-    return FitResult(
-        states=states,
-        final_loglik=final_ll,
-        ll_trace=np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
-        sweeps_run=sweep,
-        triplets_per_sec=tps,
-        wall_seconds=wall,
-        dispatch=dispatch_info,
-    )
+        if checkpoint_path:
+            checkpoint(states, sweep)
+        return FitResult(
+            states=states,
+            final_loglik=final_ll,
+            ll_trace=np.stack(ll_rows) if ll_rows else np.zeros((0, S)),
+            sweeps_run=sweep,
+            triplets_per_sec=tps,
+            wall_seconds=wall,
+            dispatch=dispatch_info,
+        )
 
 
 def _patch_worst_lane(cur_theta, cur_p, cur_ll, res: FitResult, lane: int):

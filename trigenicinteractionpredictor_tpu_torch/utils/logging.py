@@ -30,6 +30,8 @@ class JsonlLogger:
             self._fh = open(path, "a", buffering=1)
 
     def log(self, event: str, **fields: Any) -> None:
+        if self._fh is None and not self.echo:
+            return
         rec = {"event": event, "t": time.time(), **fields}
         line = json.dumps(rec, sort_keys=True, default=_json_default)
         if self._fh is not None:
