@@ -219,6 +219,99 @@ def test_serve_goes_through_k2(dev):
     assert serve_predict_interaction(one, ds.triplets).shape == (5000,)
 
 
+FEED_BLOCK = 2048
+# CUDA runtime calls that wait for the device (benchmark/spans.py's SYNCS).
+HOST_SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy"}
+
+
+@pytest.mark.parametrize("fast,dtype", [(True, np.int32), (False, np.int32), (True, np.int64)])
+@pytest.mark.parametrize("n", [1500, 3 * FEED_BLOCK, 3 * FEED_BLOCK + 777, 12 * FEED_BLOCK + 5])
+def test_pinned_feed_matches_the_scorer_block_by_block(dev, n, fast, dtype):
+    """The pinned feed gives, bit for bit, K2 (``fast``) or the plain scorer
+    applied to each block of device rows, for less than a block, whole blocks,
+    a ragged last block and chunks at their cap, from int32 or int64 ids; K2
+    launches once a block and every block goes through the feed."""
+    ds, st = _case(n, 60, 10, 2, 3, seed=23, dev=dev)
+    rows = ds.triplets.astype(dtype)
+    blocks = -(-n // FEED_BLOCK)
+    launches = score.ensemble_score.launches
+    staged = serve_predict_interaction.staged_blocks
+    got = serve_predict_interaction(st, rows, block_rows=FEED_BLOCK, fast=fast)
+    assert serve_predict_interaction.staged_blocks == staged + blocks
+    assert score.ensemble_score.launches == launches + (blocks if fast else 0)
+    scorer = score.ensemble_score if fast else score.ensemble_score_reference
+    trips = torch.as_tensor(ds.triplets, dtype=torch.int32, device=dev)
+    want = torch.cat([scorer(st.theta, st.p, trips[i : i + FEED_BLOCK])
+                      for i in range(0, n, FEED_BLOCK)]).cpu().numpy()
+    assert got.dtype == np.float32 and got.shape == (n,)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pinned_feed_from_two_threads(dev):
+    """Two threads scoring at once each get their own rows' scores: the feed's
+    pinned and device buffers are per call, its streams ordered by events."""
+    import threading
+
+    ds, st = _case(6 * FEED_BLOCK + 11, 60, 10, 2, 3, seed=37, dev=dev)
+    rows = [ds.triplets, ds.triplets[::-1]]
+    want = [serve_predict_interaction(st, r, block_rows=FEED_BLOCK) for r in rows]
+    got, errors = [[], []], []
+
+    def work(j):
+        try:
+            for _ in range(8):
+                got[j].append(serve_predict_interaction(st, rows[j], block_rows=FEED_BLOCK))
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(j,)) for j in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for j in range(2):
+        assert len(got[j]) == 8
+        for g in got[j]:
+            np.testing.assert_array_equal(g, want[j])
+
+
+def test_pinned_feed_refuses_a_bad_id_before_any_launch(dev):
+    ds, st = _case(3 * FEED_BLOCK + 5, 60, 10, 2, 3, seed=29, dev=dev)
+    rows = ds.triplets.copy()
+    rows[-1, 1] = 60  # in the last block
+    launches = score.ensemble_score.launches
+    staged = serve_predict_interaction.staged_blocks
+    with pytest.raises(ValueError, match="gene ids"):
+        serve_predict_interaction(st, rows, block_rows=FEED_BLOCK)
+    torch.cuda.synchronize()
+    assert score.ensemble_score.launches == launches
+    assert serve_predict_interaction.staged_blocks == staged
+
+
+def test_pinned_feed_makes_one_sync_and_no_pageable_copy(dev):
+    """A warm call, under the profiler: its copies are all pinned and it
+    waits for the device once, at the end (the pageable feed synced once a
+    block)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ds, st = _case(8 * FEED_BLOCK + 100, 60, 10, 2, 3, seed=31, dev=dev)
+    serve_predict_interaction(st, ds.triplets, block_rows=FEED_BLOCK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve_predict_interaction(st, ds.triplets, block_rows=FEED_BLOCK)
+    names = {e.key: e.count for e in prof.key_averages()}
+    assert any("Memcpy HtoD" in k for k in names), sorted(names)
+    assert not [k for k in names if "Pageable" in k], sorted(names)
+    # Within the call's span: the profiler syncs the device itself on exit.
+    host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    call = [e.time_range for e in host if e.name == "serve"]
+    assert len(call) == 1, call
+    inside = [e.name for e in host if call[0].start <= e.time_range.start <= call[0].end]
+    assert sum(name in HOST_SYNCS for name in inside) <= 1, inside
+
+
 def test_fit_through_k1_matches_plain_fit(dev):
     ds, _ = _case(4096, 200, 6, 2, 1, seed=3, dev=dev)
     cfg = Config()

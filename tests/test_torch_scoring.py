@@ -95,6 +95,74 @@ def test_serve_matches_jax_serve():
         scoring.serve_predict_interaction(st, np.full((2, 3), 40, np.int32))
 
 
+SERVE_G, SERVE_BLOCK = 40, 256
+
+
+def _serve_rows(case):
+    """(rows as the caller passes them, arity, whether they must be refused)."""
+    rows = np.random.default_rng(3).integers(0, SERVE_G, size=(1000, 3)).astype(np.int32)
+    if case == "negative_id":
+        rows[500, 1] = -1
+    elif case == "id_g_in_last_row":
+        rows[-1, 2] = SERVE_G
+    elif case == "int64_past_int32":
+        rows = rows.astype(np.int64)
+        rows[700, 0] = 2**32 + 1  # narrowed to int32 it would read gene 1
+    elif case == "list":
+        return rows.tolist(), 3, False
+    elif case == "negative_stride":
+        return rows.astype(np.int64)[::-1], 3, False
+    elif case == "arity_2":
+        return rows[:, :2], 2, False  # a strided view
+    elif case == "empty":
+        return rows[:0], 3, False
+    return rows, 3, True
+
+
+@pytest.mark.parametrize("case", ["negative_id", "id_g_in_last_row", "int64_past_int32", "list",
+                                  "negative_stride", "arity_2", "empty"])
+def test_serve_blocks_match_plain_scorer_or_refuse(case, monkeypatch):
+    """serve_predict_interaction's scores are the plain scorer's on each block,
+    bit for bit, whatever the ids' container, dtype, strides or arity; an id
+    outside [0, G) (an int64 id past int32 too, which narrowing would wrap)
+    raises ValueError before any block is scored.  The CPU takes no pinned
+    feed."""
+    rows, arity, refused = _serve_rows(case)
+    st = init_state(SERVE_G, 4, 2, arity=arity, samples=3, seed=11)
+    scored = []
+    plain = scoring.ensemble_predict_interaction
+    monkeypatch.setattr(scoring, "ensemble_predict_interaction",
+                        lambda *a: scored.append(a[1].shape[0]) or plain(*a))
+    staged = scoring.serve_predict_interaction.staged_blocks
+    if refused:
+        with pytest.raises(ValueError, match="gene ids"):
+            scoring.serve_predict_interaction(st, rows, block_rows=SERVE_BLOCK)
+        assert scored == []
+    else:
+        got = scoring.serve_predict_interaction(st, rows, block_rows=SERVE_BLOCK)
+        ids = np.ascontiguousarray(rows)
+        want = [plain(st, torch.as_tensor(ids[i : i + SERVE_BLOCK], dtype=torch.int32)).numpy()
+                for i in range(0, ids.shape[0], SERVE_BLOCK)]
+        assert got.dtype == np.float32 and got.shape == (ids.shape[0],)
+        np.testing.assert_array_equal(got, np.concatenate(want or [np.zeros(0, np.float32)]))
+        assert scored == [len(w) for w in want]
+    assert scoring.serve_predict_interaction.staged_blocks == staged == 0
+
+
+@pytest.mark.parametrize("n,block", [(1, 256), (256, 256), (1000, 256), (32 * 7, 7),
+                                     (33 * 7 - 3, 7), (5, 1)])
+def test_feed_chunks_tile_the_rows_in_whole_blocks(n, block):
+    """The CUDA feed's chunks tile [0, n): one block first, then as long as all
+    rows before them up to FEED_CHUNK_BLOCKS blocks, each a whole number of
+    blocks but the last (so each block's scorer call lies in one chunk)."""
+    chunks = list(scoring._feed_chunks(n, block))
+    assert [a for a, _ in chunks] == [0] + [b for _, b in chunks[:-1]] and chunks[-1][1] == n
+    cap = scoring.FEED_CHUNK_BLOCKS * block
+    for a, b in chunks:
+        assert a % block == 0 and (b % block == 0 or b == n)
+        assert b - a == min(n - a, max(block, min(a, cap)))
+
+
 def test_score_kernel_range():
     """K2 takes every K the earlier plan took (1..115) and on to 136, with
     no cap on G or S: a block of wkl x wr warps (at most 8) whose (k,l)

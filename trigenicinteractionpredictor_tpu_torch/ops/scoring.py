@@ -64,6 +64,24 @@ def serve_route(device_type: str, ensemble: bool, arity: int, k: int,
     return "torch"
 
 
+def _checked_ids(trips: np.ndarray, n_genes: int) -> torch.Tensor:
+    """The ids as a CPU tensor, after one threaded pass (``torch.aminmax``)
+    over them in their own dtype has found each in [0, ``n_genes``), so
+    int64 ids past int32 are caught before any narrowing; else
+    ``ValueError``.  The tensor views ``trips``; a copy is made only where
+    torch cannot view or reduce the array (negative strides, a foreign
+    byte order, unsigned ids wider than a byte)."""
+    if trips.dtype.kind == "u" and trips.dtype.itemsize > 1:
+        trips = trips.astype(np.int64)
+    elif not trips.dtype.isnative or any(st < 0 for st in trips.strides):
+        trips = np.ascontiguousarray(trips, trips.dtype.newbyteorder("="))
+    ids = torch.from_numpy(trips)
+    lo, hi = torch.aminmax(ids)
+    if lo < 0 or hi >= n_genes:
+        raise ValueError(f"gene ids must lie in [0, {n_genes})")
+    return ids
+
+
 def serve_predict_interaction(
     states: ModelState,
     triplets,
@@ -73,14 +91,19 @@ def serve_predict_interaction(
 ) -> np.ndarray:
     """Score many rows (numpy in, numpy out) on the states' device.
 
-    The scorer is :func:`serve_route`'s: the K2 kernel (ops/score.py) for
-    restart-stacked trigenic states on CUDA with ``fast``; the plain scorer
-    for ``fast=False``, single states, the digenic family, the CPU and K
-    past K2's plan.  Rows go in blocks of ``block_rows``; results stay on
-    the device until one copy at the end.  The kernel is exact float32, so
-    both paths agree to rounding.  Under ``torch.profiler`` a call records
-    the spans ``serve``, ``serve.check_ids``, ``serve.copy_in`` and
-    ``serve.score`` per block, and ``serve.copy_out`` (``utils/tracing.py``).
+    The ids are checked on the host before any device work: one out of
+    range raises ``ValueError`` and nothing is scored.  The scorer is
+    :func:`serve_route`'s: the K2 kernel (ops/score.py) for restart-stacked
+    trigenic states on CUDA with ``fast``; the plain scorer for
+    ``fast=False``, single states, the digenic family, the CPU and K past
+    K2's plan.  Rows go in blocks of ``block_rows``, one scorer call a
+    block; on CUDA they are fed by :func:`_pinned_feed`, on the CPU the
+    scorer reads them in place.  The kernel is exact float32, so both
+    scorers agree to rounding.  The caller owns the returned array.  Under
+    ``torch.profiler`` a call records the spans ``serve``,
+    ``serve.check_ids``, ``serve.copy_in`` per block (on CUDA per chunk of
+    blocks), ``serve.score`` per block and ``serve.copy_out``
+    (``utils/tracing.py``).
     """
     with span("serve"):
         with span("serve.check_ids"):
@@ -88,29 +111,89 @@ def serve_predict_interaction(
             n = trips.shape[0]
             if n == 0:
                 return np.zeros((0,), np.float32)
-            G = states.n_genes
-            if trips.min() < 0 or trips.max() >= G:
-                raise ValueError(f"gene ids must lie in [0, {G})")
+            ids = _checked_ids(trips, states.n_genes)
         device = states.device
         ensemble = states.theta.dim() == 3
-        use_kernel = (
-            serve_route(device.type, ensemble, trips.shape[1], states.k, fast) != "torch"
-        )
-        if use_kernel:
+        if serve_route(device.type, ensemble, ids.shape[1], states.k, fast) != "torch":
             from trigenicinteractionpredictor_tpu_torch.ops.score import ensemble_score
 
             thetas, ps = states.theta.contiguous(), states.p.contiguous()
-        out = torch.empty(n, dtype=torch.float32, device=device)
+
+            def score(tr):
+                return ensemble_score(thetas, ps, tr, interact_rating)
+        elif ensemble:
+            def score(tr):
+                return ensemble_predict_interaction(states, tr, interact_rating)
+        else:
+            def score(tr):
+                return predict_interaction(states, tr, interact_rating)
         block = max(1, min(block_rows, n))
+        if device.type == "cuda":
+            return _pinned_feed(ids, score, block, device)
+        out = torch.empty(n, dtype=torch.float32, device=device)
         for i in range(0, n, block):
             with span("serve.copy_in"):
-                tr = torch.as_tensor(trips[i : i + block], dtype=torch.int32, device=device)
+                tr = ids[i : i + block].to(device, torch.int32)
             with span("serve.score"):
-                if use_kernel:
-                    out[i : i + block] = ensemble_score(thetas, ps, tr, interact_rating)
-                elif ensemble:
-                    out[i : i + block] = ensemble_predict_interaction(states, tr, interact_rating)
-                else:
-                    out[i : i + block] = predict_interaction(states, tr, interact_rating)
+                out[i : i + block] = score(tr)
         with span("serve.copy_out"):
             return out.cpu().numpy()
+
+
+serve_predict_interaction.staged_blocks = 0
+
+
+# The CUDA feed stages and sends rows in chunks of at most this many blocks.
+FEED_CHUNK_BLOCKS = 4
+
+
+def _feed_chunks(n: int, block: int):
+    """The row ranges [a, b) the CUDA feed stages and sends at once: one
+    block, then chunks as long as all rows before them, up to
+    ``FEED_CHUNK_BLOCKS`` blocks; every bound but ``n`` a whole number of
+    blocks.  So the first scorer call waits for one block only, and a call
+    makes a few threaded copies rather than one a block: each such copy can
+    stall on a descheduled thread."""
+    a = 0
+    while a < n:
+        b = min(n, a + max(block, min(a, FEED_CHUNK_BLOCKS * block)))
+        yield a, b
+        a = b
+
+
+def _pinned_feed(ids: torch.Tensor, score, block: int, device: torch.device) -> np.ndarray:
+    """The CUDA feed of :func:`serve_predict_interaction`: each chunk of
+    blocks (:func:`_feed_chunks`) is narrowed to int32 into pinned host
+    memory by a threaded ``copy_`` and sent with ``non_blocking`` on a side
+    stream; the scoring stream waits for that chunk only, so the next
+    chunk's copy overlaps this chunk's scorer calls, one a block.  The
+    scores come back through pinned memory with the call's one blocking
+    sync, then by one threaded copy into a fresh array: a pinned array
+    handed to a caller that keeps it would have the next call pin new memory
+    (``cudaHostAlloc``, milliseconds).  Pinned memory comes from torch's
+    caching host allocator, per call, so two threads may call at once.
+    Counts the blocks it fed in ``serve_predict_interaction.staged_blocks``."""
+    n = ids.shape[0]
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    staged = torch.empty(ids.shape, dtype=torch.int32, pin_memory=True)
+    rows = torch.empty(ids.shape, dtype=torch.int32, device=device)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    side.wait_stream(cur)  # rows may reuse memory that work queued on cur still reads
+    for a, b in _feed_chunks(n, block):
+        with span("serve.copy_in"):
+            staged[a:b].copy_(ids[a:b])
+            with torch.cuda.stream(side):
+                rows[a:b].copy_(staged[a:b], non_blocking=True)
+            cur.wait_stream(side)
+        for i in range(a, b, block):
+            with span("serve.score"):
+                out[i : i + block] = score(rows[i : i + block])
+    serve_predict_interaction.staged_blocks += -(-n // block)
+    with span("serve.copy_out"):
+        host = torch.empty(n, dtype=torch.float32, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        cur.synchronize()
+        scores = np.empty(n, np.float32)
+        torch.from_numpy(scores).copy_(host)
+        return scores
