@@ -14,7 +14,7 @@ from trigenicinteractionpredictor_tpu_torch.config import Config, EngineConfig, 
 from trigenicinteractionpredictor_tpu_torch.data.splits import train_test_split
 from trigenicinteractionpredictor_tpu_torch.data.synthetic import sample_synthetic_dataset
 from trigenicinteractionpredictor_tpu_torch.models.mmsbm import ModelState, init_state
-from trigenicinteractionpredictor_tpu_torch.ops import dispatch, em_bdg, em_large_k, scoring
+from trigenicinteractionpredictor_tpu_torch.ops import dispatch, em_bd, em_bdg, em_large_k, scoring
 from trigenicinteractionpredictor_tpu_torch.train import trainer
 from trigenicinteractionpredictor_tpu_torch.utils import logging as port_logging
 from trigenicinteractionpredictor_tpu_torch.utils import tracing
@@ -95,6 +95,25 @@ def test_fit_spans_nest_under_fit_in_order(split, route, tmp_path):
     assert len(plans) == (route is not None)
     assert all(_inside(s, first["fit.make_batch"]) for s in plans)
     assert not any(s[0] == "fit.checkpoint" for s in spans)
+
+
+@pytest.mark.parametrize("route,parts", [
+    (None, []),
+    (em_bdg.KERNEL_NAME, ["fit.plan.g1", "fit.plan.scatter"]),
+    (em_bd.KERNEL_NAME, ["fit.plan.scatter"]),
+    (em_large_k.KERNEL_NAME, []),
+])
+def test_the_large_g_plans_are_split_inside_fit_plan(split, route, parts, tmp_path):
+    """bdg's g1 plan and the scatter plans of the large-G routes record
+    their own spans, one after the other inside ``fit.plan``."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _fit(split, route)
+    spans = _spans(prof, tmp_path)
+    found = [s for s in spans if s[0].startswith("fit.plan.")]
+    assert [s[0] for s in found] == parts
+    plans = [s for s in spans if s[0] == "fit.plan"]
+    assert all(_inside(s, plans[0]) for s in found)
+    assert all(a[2] <= b[1] for a, b in zip(found, found[1:]))
 
 
 @pytest.mark.parametrize("ensemble", [True, False])

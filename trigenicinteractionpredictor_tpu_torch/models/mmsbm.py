@@ -67,13 +67,19 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _fresh_f32(x, device) -> torch.Tensor:
+    """A new contiguous float32 copy of ``x`` on ``device``; a tensor is
+    copied straight to it, with no trip through host memory."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=torch.float32, device=device).copy_(x.detach())
+    return torch.as_tensor(np.asarray(x).astype(np.float32), device=device)
+
+
 def state_from_numpy(theta, p, device="cpu") -> ModelState:
-    """Carry (theta, p) arrays -- e.g. the JAX package's parameters or a
-    checkpoint's -- into the port as float32 tensors on ``device``."""
-    return ModelState(
-        theta=torch.as_tensor(to_numpy(theta).astype(np.float32), device=device),
-        p=torch.as_tensor(to_numpy(p).astype(np.float32), device=device),
-    )
+    """Carry (theta, p) arrays or tensors -- e.g. the JAX package's
+    parameters, a checkpoint's, or states drawn on the card -- into the
+    port as new float32 tensors on ``device``."""
+    return ModelState(theta=_fresh_f32(theta, device), p=_fresh_f32(p, device))
 
 
 def init_state(

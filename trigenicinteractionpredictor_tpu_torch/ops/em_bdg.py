@@ -77,6 +77,19 @@ def apply_g1_order(plan: G1Plan, triplets, ratings, weights):
             np.asarray(weights)[plan.order])
 
 
+def device_g1_order(batch: Batch, n_genes: int, wb1: int = DEFAULT_WB1) -> Batch:
+    """:func:`make_g1_plan` and :func:`apply_g1_order` on the batch's
+    device: its rows stably sorted by position-1 gene block, carrying the
+    plan's local ids and CSR offsets.  The same plan as the host's (a
+    stable sort has one result), with no value read back to the host."""
+    key, order = torch.sort(batch.triplets[:, 0] // wb1, stable=True)
+    trip = batch.triplets[order]
+    starts = torch.arange(-(-n_genes // wb1) + 1, dtype=key.dtype, device=key.device)
+    return batch._replace(triplets=trip, ratings=batch.ratings[order],
+                          weights=batch.weights[order], g1_lid=(trip[:, 0] % wb1).contiguous(),
+                          g1_offsets=torch.searchsorted(key, starts, out_int32=True))
+
+
 def _smem_bytes(k: int, n_ratings: int, tile: int, wb1: int) -> int:
     """K1's tile buffers plus the theta block and its accumulator, [wb1, K]
     each."""

@@ -103,8 +103,8 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
     log_likelihood,
     make_batch,
 )
-from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import apply_g1_order, make_g1_plan
-from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import make_scatter_plan
+from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import device_g1_order
+from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import device_scatter_plan
 from trigenicinteractionpredictor_tpu_torch.ops.em_large_k import stream_plan, with_stream_plan
 from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (
     apply_rating_sort,
@@ -223,15 +223,18 @@ def _check_ids(ds: TripletDataset) -> None:
 
 
 def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
-    """The fit's device batch, with the host plans the chosen sweep needs
-    (the reference's ``train/trainer.py:358-455``): for the rating-sorted
-    sweep, rows stably sorted by rating and padded per class to whole plan
-    tiles, with the tile table; for bdg, rows in g1 order plus a 2-position
-    scatter plan of the reordered rows; for the other plan routes, a
-    3-position scatter plan.  Plans are built once per fit, on the host;
-    K3's (the rating order and the gene-sorted plan of its streams,
-    ``ops/em_large_k.py::stream_plan``, which its calls would otherwise
-    build every sweep) on the batch's device."""
+    """The fit's device batch, with the plans the chosen sweep needs (the
+    reference's ``train/trainer.py:358-455``): for the rating-sorted sweep,
+    rows stably sorted by rating and padded per class to whole plan tiles,
+    with the tile table, on the host; the others on the batch's device,
+    with no value read back to the host: for bdg, rows in g1 order plus a
+    2-position scatter plan of the reordered rows
+    (``ops/em_bdg.py::device_g1_order``); for the other plan routes, a
+    3-position scatter plan (``ops/em_large_g.py::device_scatter_plan``);
+    for K3, the rating order and the gene-sorted plan of its streams
+    (``ops/em_large_k.py::stream_plan``), which its calls would otherwise
+    build every sweep.  Each is built once per fit and is the plan its
+    host function (``make_g1_plan``, ``make_scatter_plan``) gives."""
     trip, rat, w = ds.triplets, ds.ratings, ds.weights
     if getattr(stats_fn, "needs_rsort", False):
         with span("fit.plan"):
@@ -241,21 +244,23 @@ def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
         log.log("backend", kernel=stats_fn.kernel_name, tile_b=stats_fn.tile_b,
                 padded_rows=int(plan.n_rows))
         return make_batch(trip, rat, w, dev, tile_rating=plan.tile_r)
-    if getattr(stats_fn, "needs_g1plan", False):
-        with span("fit.plan"):
-            g1 = make_g1_plan(trip, ds.n_genes, wb1=stats_fn.wb1)
-            trip, rat, w = apply_g1_order(g1, trip, rat, w)
-            scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb, positions=(1, 2))
-        log.log("backend", kernel=stats_fn.kernel_name, wb1=g1.wb1, wb=scatter.wb,
-                g1_blocks=g1.n_blocks, plan_rows=int(scatter.perm.shape[0]))
-        return make_batch(trip, rat, w, dev, scatter=scatter, g1=g1)
-    if getattr(stats_fn, "needs_plan", False):
-        with span("fit.plan"):
-            scatter = make_scatter_plan(trip, ds.n_genes, wb=stats_fn.wb)
-        log.log("backend", kernel=stats_fn.kernel_name, wb=scatter.wb,
-                plan_rows=int(scatter.perm.shape[0]))
-        return make_batch(trip, rat, w, dev, scatter=scatter)
     batch = make_batch(trip, rat, w, dev)
+    g1_plan = getattr(stats_fn, "needs_g1plan", False)
+    if g1_plan or getattr(stats_fn, "needs_plan", False):
+        info = {}
+        with span("fit.plan"):
+            if g1_plan:
+                with span("fit.plan.g1"):
+                    batch = device_g1_order(batch, ds.n_genes, stats_fn.wb1)
+                info = {"wb1": stats_fn.wb1, "g1_blocks": -(-ds.n_genes // stats_fn.wb1)}
+            with span("fit.plan.scatter"):
+                # bdg keeps position 1 in its E-step: slots of positions 2 and 3.
+                slots = batch.triplets[:, 1:] if g1_plan else batch.triplets
+                perm, lid, offsets = device_scatter_plan(slots.T.reshape(-1), ds.n_genes,
+                                                         stats_fn.wb)
+        log.log("backend", kernel=stats_fn.kernel_name, wb=stats_fn.wb, **info,
+                plan_rows=int(perm.shape[0]))
+        return batch._replace(scatter_perm=perm, scatter_lid=lid, scatter_offsets=offsets)
     if getattr(stats_fn, "needs_stream_plan", False):
         with span("fit.plan"):
             plan = stream_plan(batch.triplets, batch.ratings, ds.n_ratings, ds.n_genes)
