@@ -1758,8 +1758,7 @@ def determinism_phase(card: str, dev, train, k1_fit) -> None:
             a, b = getattr(runs[0], field), getattr(runs[1], field)
             assert torch.isfinite(a).all() and torch.equal(a, b), (name, k, g, s, field)
         if name == em_bdr.KERNEL_NAME:
-            streams = not em_bdr.theta_in_part(N, s, g, k, em_bdr.sweep_plan(k, R)[0],
-                                                em_bdr.sm_count(dev))
+            streams = not em_bdr.theta_in_part(N, s, g, k, R, em_bdr.sm_count(dev))
             assert streams == (g == 100_000), (g, streams)
             assert ("cuda-plan-scatter" in ran) == streams, ran
         kernels = [] if name == dispatch.PLAIN_NAME else [
@@ -1904,15 +1903,14 @@ def _device_ms(fn, reps: int) -> float:
 
 def _time_block_sum(card: str, dev) -> dict:
     """The block sum's row of the kernels line, at K1's partials at the
-    headline shape (S = 10, the blocks of em_bdr.launch_plan, [G K | K^3 R
+    headline shape (S = 10, the blocks of em_bdr.sweep_grid, [G K | K^3 R
     | 1] a block)."""
     import torch
 
     from trigenicinteractionpredictor_tpu_torch.ops import block_sum, em_bdr
 
     N, G, K, R, S = (HEADLINE[k] for k in ("n", "genes", "k", "ratings", "samples"))
-    tile = em_bdr.sweep_plan(K, R)[0]
-    _, nb = em_bdr.launch_plan(N, S, tile, em_bdr.sm_count(dev))
+    _, nb = em_bdr.sweep_grid(N, S, K, R, em_bdr.sm_count(dev))
     cells = K ** 3 * R
     ld = G * K + cells + 1
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -87,6 +87,66 @@ def test_k1_refuses_what_it_does_not_take(dev):
         em_bdr.em_ensemble_stats(big.theta, big.p, tb)
 
 
+def _k1_rows(n, g, k, r, s, seed, dev, hub):
+    """n rows padded with weight-0 rows to n + 101 (a ragged last tile),
+    5% of the rows inside weighted 0 too, ratings drawn per row (the
+    warps of a tile mix ratings); with ``hub``, gene g // 3 at position 1
+    in 40% of the rows."""
+    ds, st = _case(n, g, k, r, s, seed, dev, pad_to=n + 101)
+    rng = np.random.default_rng(seed)
+    trip, w = ds.triplets.copy(), ds.weights.copy()
+    w[rng.random(len(w)) < 0.05] = 0.0
+    if hub:
+        trip[rng.random(len(trip)) < 0.4, 0] = g // 3
+    return make_batch(trip, ds.ratings, w, dev), st
+
+
+@pytest.mark.parametrize("k,r", [(1, 1), (1, 3), (3, 2), (7, 3), (9, 2), (10, 1), (10, 2),
+                                 (10, 3), (13, 3), (17, 1), (20, 2), (20, 3)])
+@pytest.mark.parametrize("hub", [False, True])
+def test_k1_row_pass_matches_plain(dev, k, r, hub):
+    """K1's register-resident E-step, exact at K = 10 and padded to the
+    next multiple of 4 elsewhere, against the plain sweep in float64: K =
+    1, odd K, 10 and 20, R = 1..3, on a ragged last tile, weight-0 rows and
+    (hub) a gene in 40% of the rows; the private theta_hat form and the
+    streams form (K5a), at the tolerances of test_k1_matches_plain
+    (theta_hat also rtol 1e-6 at a hub, as _assert_close_stats).  In
+    float64, since at these sizes the float32 plain sweep's own rounding
+    passes rtol 1e-6 (a p_hat cell sums ~100 rows at K = 3, the hub ~1100);
+    at R = 1 with p from 0.2 to 1, since a fitted p is 1 there, every D is
+    1 and L is 0 up to rounding."""
+    tb, st = _k1_rows(2900, 400, k, r, 3, seed=61 + k, dev=dev, hub=hub)
+    p = st.p
+    if r == 1:
+        gen = torch.Generator(device=dev).manual_seed(k)
+        p = 0.2 + 0.8 * torch.rand(p.shape, device=dev, generator=gen)
+    launches = em_bdr.em_ensemble_stats.launches
+    out = em_bdr.em_ensemble_stats(st.theta, p, tb)
+    streams, p_hat, ll = em_bd.em_streams(st.theta, p, tb)
+    args = (st.theta.double(), p.double(), tb._replace(weights=tb.weights.double()))
+    ref = em_bdr.em_ensemble_stats_reference(*args)
+    want_streams, want_p, want_ll = em_bd.em_streams_reference(*args)
+    torch.cuda.synchronize()
+    assert em_bdr.em_ensemble_stats.launches == launches + 1
+    _assert_close_stats(out, type(ref)(*(x.float() for x in ref)))
+    np.testing.assert_allclose(streams.cpu(), want_streams.float().cpu(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(p_hat.cpu(), want_p.float().cpu(), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(ll.cpu(), want_ll.float().cpu(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,r", [(1, 1), (4, 2), (7, 3), (10, 2), (10, 3), (13, 2), (16, 1),
+                                 (17, 3), (20, 2), (20, 3)])
+def test_k1_grid_counts_the_blocks_an_sm_holds(dev, k, r):
+    """The blocks an SM holds of (K, R)'s kernel instance at its plan's
+    shared memory (the CUDA occupancy calculator) are the ones K1's grid
+    plans waves of (ops/em_bdr.py sweep_resident): four at K = 10, R = 2."""
+    from trigenicinteractionpredictor_tpu_torch.ops import _build
+
+    smem = em_bdr.sweep_plan(k, r)[1]
+    held = _build.library().tip_em_sweep_occupancy(k, r, smem)
+    assert held == em_bdr.sweep_resident(k, r, smem)
+
+
 @pytest.mark.parametrize(
     "k,r,s",
     [(21, 2, 1), (21, 3, 3), (25, 2, 3), (25, 3, 1), (33, 2, 3), (33, 3, 1),
@@ -995,6 +1055,7 @@ def test_quality_bands_on_the_card(dev, name):
 
 @pytest.mark.parametrize("route,k,g,s", [
     ("cuda-em-sweep", 10, 1000, 10), ("cuda-em-sweep", 20, 300, 2),
+    ("cuda-em-sweep", 13, 2000, 3),
     ("cuda-em-sweep-large-k", 25, 1000, 3), ("cuda-em-sweep-large-k", 72, 500, 2),
     ("cuda-em-hybrid", 25, 3000, 2), ("cuda-em-bdg", 10, 50_000, 4),
     ("cuda-em-bd-plan", 10, 50_000, 4), ("cuda-em-large-g", 10, 50_000, 1),

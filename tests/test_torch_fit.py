@@ -356,21 +356,48 @@ def _tile_bytes(k, r, tile):
     return 4 * (floats + 5 * tile + 8)
 
 
-@pytest.mark.parametrize("k", [1, 2, 7, 10, 13, 17, 19, 20])
+def _k1_p_layout(k):
+    """K1's staging of p[s] (``csrc/em_sweep.cu``): (KC, LS, rating stride)."""
+    kc = 10 if k == 10 else 4 * -(-k // 4)
+    ls = {4: 4, 8: 12, 10: 12, 12: 12, 16: 20, 20: 20}[kc]
+    rating = k * kc * ls
+    while rating % 32 != 16:
+        rating += 4
+    return kc, ls, rating
+
+
+def _k1_tile_bytes(k, r, tile):
+    """``csrc/em_sweep.cu`` carve, written out: p[s] as [R][K][KC][LS]
+    (KC = 10 at K = 10, else K rounded up to 4; LS = KC rounded up to an
+    odd number of float4s; each rating's slice padded to 16 words mod 32),
+    the cross-stats [R][K][K4][K4], 27 tile + 256 words of keys and the
+    keyed sum's lists (no T/U), then as ``_tile_bytes``."""
+    k4 = 4 * -(-k // 4)
+    rating = _k1_p_layout(k)[2]
+    ns = 4 * -(-tile // 4) + 4 * (r - 1)
+    floats = (r * rating + r * k * k4 * k4 + 27 * tile + 256 + 3 * k4 * ns + 3 * k * ns
+              + 2 * ns + tile)
+    return 4 * (floats + 5 * tile + 8)
+
+
+@pytest.mark.parametrize("k", range(1, 21))
 @pytest.mark.parametrize("r", [1, 2, 3])
 def test_tile_plans_mirror_the_smem_layout(k, r):
     """K1's, K4's and K9's host plans keep their K and R ranges and size
-    the new tile buffers byte for byte: K1 takes K = 1..20 at R <= 3 with
-    the largest tile that fits, K4 adds two [wb1, K] blocks, K9 carves one
-    rating and reaches K = 28."""
+    their tile buffers byte for byte: K1 takes K = 1..20 at R <= 3 with
+    the largest tile that fits its own carve (no T/U), and still every
+    tile the shared carve fitted; K4 adds two [wb1, K] blocks to the
+    shared carve, K9 carves one rating and reaches K = 28."""
     from trigenicinteractionpredictor_tpu_torch.ops import em_bdg, em_bdr, em_rsorted
 
     limit = 232_448 - 1024
     for tile in em_bdr.TILES:
         assert em_bdr.tile_smem_bytes(k, r, tile) == _tile_bytes(k, r, tile)
+        assert em_bdr.sweep_smem_bytes(k, r, tile) == _k1_tile_bytes(k, r, tile)
     tile, smem = em_bdr.sweep_plan(k, r)
-    assert smem == _tile_bytes(k, r, tile) <= limit
-    assert all(_tile_bytes(k, r, t) > limit for t in em_bdr.TILES if t > tile)
+    assert smem == _k1_tile_bytes(k, r, tile) <= limit
+    assert all(_k1_tile_bytes(k, r, t) > limit for t in em_bdr.TILES if t > tile)
+    assert tile >= max(t for t in em_bdr.TILES if _tile_bytes(k, r, t) <= limit)
     tile4, wb1 = em_bdg.bdg_plan(k, r)
     assert em_bdg._smem_bytes(k, r, tile4, wb1) == _tile_bytes(k, r, tile4) + 8 * wb1 * k
     assert em_bdg._smem_bytes(k, r, tile4, wb1) <= limit
@@ -383,10 +410,62 @@ def test_tile_plan_ranges():
     from trigenicinteractionpredictor_tpu_torch.ops import em_bdr, em_rsorted
 
     assert em_bdr.sweep_plan(21, 1) is None and em_bdr.sweep_plan(0, 2) is None
-    assert em_bdr.sweep_plan(20, 3) == (8, _tile_bytes(20, 3, 8))
-    assert em_bdr.sweep_plan(10, 2) == (64, _tile_bytes(10, 2, 64))
+    assert em_bdr.sweep_plan(20, 3) == (32, _k1_tile_bytes(20, 3, 32))
+    assert em_bdr.sweep_plan(10, 2) == (64, _k1_tile_bytes(10, 2, 64)) == (64, 49_120)
     assert em_rsorted.sweep_plan(28, 512) == (8, _tile_bytes(28, 1, 8))
     assert em_rsorted.sweep_plan(29, 512) is None
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 10, 13, 20])
+def test_k1_estep_lane_split_gives_the_algebra(k):
+    """K1's E-step as the kernel runs it, on the host: p[s] staged as
+    [r][k][l < KC][LS] with zeros past K; lane j of a row's four takes
+    l = j, j + 4, ... < KC and walks each p row once (t = th3 . p,
+    A3 += th1[k] th2[l] p); A1[k] and A3 summed over the four lanes as the
+    xor shuffles pair them.  A1, A2, A3 and D equal the plain algebra's,
+    and the four lanes' p rows fall in four bank quads, a second rating's
+    in the other four."""
+    from trigenicinteractionpredictor_tpu_torch.ops import em_bdr
+
+    kc, ls, rstride = _k1_p_layout(k)
+    assert em_bdr.sweep_kc(k) == kc and ls % 4 == 0 and (ls // 4) % 2 == 1
+    assert kc >= k and (kc == k or kc % 4 == 0) and rstride % 32 == 16
+    quads = [{(r * rstride + j * ls) // 4 % 8 for j in range(4)} for r in range(2)]
+    assert len(quads[0]) == len(quads[1]) == 4 and not quads[0] & quads[1]
+    rng = np.random.default_rng(k)
+    r_n = 3
+    p = rng.random((k, k, k, r_n))
+    flat = np.zeros(r_n * rstride)
+    for r in range(r_n):
+        for kk in range(k):
+            for l in range(k):
+                base = r * rstride + (kk * kc + l) * ls
+                flat[base:base + k] = p[kk, l, :, r]
+    for _ in range(5):
+        th1, th2, th3 = (np.pad(rng.dirichlet(np.ones(k)), (0, kc - k)) for _ in range(3))
+        r = int(rng.integers(r_n))
+        lanes = []
+        for j in range(4):
+            a1, a2, a3 = np.zeros(k), np.zeros(kc), np.zeros(kc)
+            for kk in range(k):
+                for l in range(j, kc, 4):
+                    row = flat[r * rstride + (kk * kc + l) * ls:][:kc]
+                    t = th3 @ row
+                    a3 += th1[kk] * th2[l] * row
+                    a1[kk] += th2[l] * t
+                    a2[l] += th1[kk] * t
+            lanes.append((a1, a2, a3))
+        a1 = (lanes[0][0] + lanes[1][0]) + (lanes[2][0] + lanes[3][0])
+        a3 = (lanes[0][2] + lanes[1][2]) + (lanes[2][2] + lanes[3][2])
+        a2 = np.array([lanes[l % 4][1][l] for l in range(kc)])  # lane l % 4 owns l
+        pr = p[..., r]
+        tt = np.einsum("klm,m->kl", pr, th3[:k])
+        np.testing.assert_allclose(a1, tt @ th2[:k], rtol=1e-12)
+        np.testing.assert_allclose(a2[:k], th1[:k] @ tt, rtol=1e-12)
+        np.testing.assert_allclose(a3[:k], np.einsum("k,l,klm->m", th1[:k], th2[:k], pr),
+                                   rtol=1e-12)
+        assert not a2[k:].any() and not a3[k:].any()
+        np.testing.assert_allclose(th1[:k] @ a1, th1[:k] @ tt @ th2[:k], rtol=1e-12)
 
 
 def _tile_slots(rr, n_ratings):

@@ -48,17 +48,45 @@ def test_launch_plan_fills_waves_of_resident_blocks(n_rows, s):
     assert em_bdr.launch_plan(131_072, 10, 64, H100_SMS) == (3392, 39)
 
 
+@pytest.mark.parametrize("k", [1, 4, 9, 10, 13, 16, 20])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_k1_grid_holds_the_blocks_an_sm_holds(k, r):
+    """K1's grid is waves of the blocks an SM holds of its instance: its
+    launch bound (4 for the K = 10, R = 2 instance, else 3) where shared
+    memory allows, fewer where it binds (K = 20, R = 2: one), so no plan
+    counts on blocks that would run in an extra wave; at the headline
+    (131,072 rows, S = 10, K = 10, R = 2) 4 an SM, 52 blocks a restart of
+    2560 rows."""
+    plan = em_bdr.sweep_plan(k, r)
+    resident = em_bdr.sweep_resident(k, r, plan[1])
+    bound = 4 if (k, r) == (10, 2) else 3
+    assert 1 <= resident == min(bound, 233_472 // (plan[1] + 1024))
+    for n_rows, s in ((131_072, 10), (104_858, 10), (4096, 1), (1_000_000, 50)):
+        rpb, blocks = em_bdr.sweep_grid(n_rows, s, k, r, H100_SMS)
+        assert (rpb, blocks) == em_bdr.launch_plan(n_rows, s, plan[0], H100_SMS,
+                                                   resident=resident)
+        assert rpb % plan[0] == 0 and (blocks - 1) * rpb < n_rows <= blocks * rpb
+        assert blocks == 1 or blocks * s <= 3 * resident * H100_SMS
+    assert em_bdr.sweep_resident(10, 2, em_bdr.sweep_plan(10, 2)[1]) == 4
+    assert em_bdr.sweep_resident(10, 3, em_bdr.sweep_plan(10, 3)[1]) == 3
+    assert em_bdr.sweep_resident(20, 2, em_bdr.sweep_plan(20, 2)[1]) == 1
+    assert em_bdr.sweep_grid(131_072, 10, 10, 2, H100_SMS) == (2560, 52)
+    assert em_bdr.sweep_grid(104_858, 10, 10, 2, H100_SMS) == (2048, 52)
+
+
 @pytest.mark.parametrize("n,s,g,k,private", [
     (131_072, 10, 1000, 10, True),      # the headline: 16 MB of private theta_hats
     (131_072, 1, 10_000, 10, True),     # bd_plan_wide_s50_g10k's S = 1 line
     (131_072, 10, 100_000, 10, False),  # phase 8's K1 beside K4: streams
-    (131_072, 1, 12_376, 20, False),    # the S = 1 edge of K1's classic range, K = 20
+    (131_072, 1, 12_376, 20, True),     # the S = 1 edge of K1's classic range, K = 20:
+                                        # one block an SM, 132 blocks, 131 MB
+    (131_072, 1, 12_376, 16, True),     # K = 16 there: two an SM, 256 blocks, 203 MB
+    (131_072, 1, 50_000, 10, False),    # K = 10, four an SM: 528 blocks, 1056 MB
     (131_072, 10, 4500, 10, True),
 ])
 def test_k1_theta_form_follows_the_partials_budget(n, s, g, k, private):
-    tile = em_bdr.sweep_plan(k, 2)[0]
-    _, blocks = em_bdr.launch_plan(n, s, tile, H100_SMS)
-    assert em_bdr.theta_in_part(n, s, g, k, tile, H100_SMS) == private
+    _, blocks = em_bdr.sweep_grid(n, s, k, 2, H100_SMS)
+    assert em_bdr.theta_in_part(n, s, g, k, 2, H100_SMS) == private
     assert private == (4 * s * blocks * g * k <= em_bdr.THETA_PART_BYTES)
 
 

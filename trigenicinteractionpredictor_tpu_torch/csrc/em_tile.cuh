@@ -2,7 +2,11 @@
 // (em_bdg.cu) and K9 (em_rsorted.cu).  Each kernel gathers its rows' theta
 // and places the per-row position marginals its own way (K1 and K9 add them
 // into a block-private theta_hat, add_marginals; K5a writes streams; K4
-// writes streams and a gene block's accumulator).
+// writes streams and a gene block's accumulator).  K1 and K5a carve their
+// own buffers and run their own p staging, E-step and flush (em_sweep.cu:
+// one register-resident pass per row, no T/U); they take load_rows,
+// add_marginals, cross_acc and block_store from here.  The rest of this
+// header describes the shared carve and estep() that K4 and K9 run.
 //
 // One block owns one restart s; p[s] and its cross-stats stay in shared
 // memory for the block's whole run of rows.  Per tile of `tile` rows the

@@ -35,6 +35,8 @@ _SIGNATURES = {
     # theta, p, trip, rat, w, streams (or null), part,
     # S, B, G, K, R, tile, rows_per_block, threads, smem_bytes, stream
     "tip_em_sweep": [_P] * 7 + [_I] * 9 + [_P],
+    # K, R, smem_bytes -> blocks an SM holds, or minus a CUDA error
+    "tip_em_sweep_occupancy": [_I] * 3,
     # theta, p, trip, w, order, off, pk, streams, p_part, ll_part, scale, rowinfo,
     # S, B, G, K, R, KC, estep_threads, estep_smem, nk, splits, vec,
     # cross_threads, cross_smem, stream

@@ -8,7 +8,7 @@ On a CPU tensor it runs the plain version, :func:`em_ensemble_stats_reference`
 kernel or raises -- it never falls back.  The kernel reads every row's
 rating itself, so rows need no rating sort.  It is exact float32 (no
 tensor cores, no TF32) in both engine precision modes, and it sums in an
-order fixed by the rows and :func:`launch_plan`, so a call gives the same
+order fixed by the rows and :func:`sweep_grid`, so a call gives the same
 bits from run to run: each block writes its partial theta_hat, p_hat and
 loglik into its own slot of a buffer, and ``ops/block_sum.py`` adds the
 slots up in block order.  Where the blocks' private theta_hats would pass
@@ -37,7 +37,15 @@ THREADS = 256
 # static reduction buffer and a margin.
 SMEM_LIMIT = 232_448 - 1024
 TILES = (64, 32, 16, 8)
-RESIDENT = 3  # blocks an SM holds: __launch_bounds__(256, 3)
+RESIDENT = 3  # blocks an SM holds at most: __launch_bounds__(256, 3)
+# (K, R) whose kernel instance fixes R at compile time and holds four
+# blocks an SM: __launch_bounds__(256, 4) (csrc/em_sweep.cu).
+FOUR_BLOCK_SHAPES = ((10, 2),)
+SM_SMEM = 233_472       # shared memory of one H100 SM, bytes
+BLOCK_RESERVED = 1024   # of it, reserved per resident block
+# K whose E-step runs in an instance of its own, with no pads; every other
+# K runs in the instance of K rounded up to 4 (csrc/em_sweep.cu kc_of).
+EXACT_K = (10,)
 # Largest buffer of private theta_hats (S x blocks x G x K floats) K1
 # takes; past it K1 writes marginal streams for plan_scatter instead.  At
 # the headline shape (S = 10, G = 1000, K = 10) the private form takes
@@ -46,7 +54,8 @@ THETA_PART_BYTES = 256 << 20
 
 
 def tile_smem_bytes(k: int, n_ratings: int, tile: int) -> int:
-    """Shared memory of the tile buffers (``csrc/em_tile.cuh`` carve): p[s]
+    """Shared memory of K4's and K9's tile buffers (``csrc/em_tile.cuh``
+    carve; K1 sizes its own, :func:`sweep_smem_bytes`): p[s]
     and its cross-stats with l and m padded to K4 = K rounded up to 4, then
     per-slot vectors over NS = tile rounded up to 4 plus 4 (R - 1) slots
     (each rating's rows start a quad; T/U at least 27 tile + 256 words,
@@ -60,6 +69,30 @@ def tile_smem_bytes(k: int, n_ratings: int, tile: int) -> int:
     return 4 * (floats + ints)
 
 
+def sweep_kc(k: int) -> int:
+    """The E-step instance that runs K: K itself if in EXACT_K, else K
+    rounded up to 4."""
+    return k if k in EXACT_K else -(-k // 4) * 4
+
+
+def sweep_smem_bytes(k: int, n_ratings: int, tile: int) -> int:
+    """Shared memory of K1's tile buffers (``csrc/em_sweep.cu`` carve):
+    p[s] staged for the E-step as [R][K][KC][LS] (KC = :func:`sweep_kc`;
+    LS = KC rounded up to a whole, odd number of float4s; a rating's slice
+    rounded up to 16 words mod 32), its cross-stats [R][K][K4][K4], the
+    keys and the keyed sum's lists (27 tile + 256 words), then theta, A and
+    the per-slot and per-row vectors as :func:`tile_smem_bytes`."""
+    kc = sweep_kc(k)
+    k4 = -(-k // 4) * 4
+    ns = -(-tile // 4) * 4 + 4 * (n_ratings - 1)
+    quads = -(-kc // 4)
+    ls = 4 * quads if quads % 2 else 4 * quads + 4
+    rating = k * kc * ls + (48 - k * kc * ls % 32) % 32
+    floats = (n_ratings * rating + n_ratings * k * k4 * k4 + 27 * tile + 256
+              + 3 * k4 * ns + 3 * k * ns + 2 * ns + tile)
+    return 4 * (floats + 5 * tile + 8)
+
+
 def sweep_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
     """(rows per tile, dynamic shared-memory bytes) for the kernel at this
     (K, R), or None when K is outside the kernel's range (1..MAX_K) or
@@ -67,23 +100,31 @@ def sweep_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
     if not 1 <= k <= MAX_K:
         return None
     for tile in TILES:
-        smem = tile_smem_bytes(k, n_ratings, tile)
+        smem = sweep_smem_bytes(k, n_ratings, tile)
         if smem <= SMEM_LIMIT:
             return tile, smem
     return None
 
 
+def sweep_resident(k: int, n_ratings: int, smem: int) -> int:
+    """Blocks of K1's instance for (K, R) one SM holds at ``smem`` bytes
+    each: its launch bound (4 for FOUR_BLOCK_SHAPES, else RESIDENT) or what
+    the SM's shared memory holds, the fewer."""
+    bound = 4 if (k, n_ratings) in FOUR_BLOCK_SHAPES else RESIDENT
+    return min(bound, SM_SMEM // (smem + BLOCK_RESERVED))
+
+
 def launch_plan(n_rows: int, n_samples: int, tile: int, n_sm: int,
-                max_blocks: int = 0) -> Tuple[int, int]:
+                max_blocks: int = 0, resident: int = RESIDENT) -> Tuple[int, int]:
     """(rows per block, blocks) of the grid (blocks, S) of the kernels on
-    ``csrc/em_tile.cuh`` that walk rows in runs (K1, K5a, K9): the fewest
-    waves (1..3) of RESIDENT blocks an SM whose blocks fill at least 95%
-    of them (at most ``max_blocks`` if > 0), each block a run of whole
-    tiles.  A pure function of the rows, S, the tile and the card's SM
-    count, so on one card it fixes the order of every sum the sweep
-    makes."""
+    ``csrc/em_tile.cuh`` that walk rows in runs (K1 and K5a through
+    :func:`sweep_grid`, K9): the fewest waves (1..3) of ``resident`` blocks
+    an SM whose blocks fill at least 95% of them (at most ``max_blocks`` if
+    > 0), each block a run of whole tiles.  A pure function of the rows,
+    S, the tile and the card's SM count, so on one card it fixes the order
+    of every sum the sweep makes."""
     n_tiles = -(-n_rows // tile)
-    slots = RESIDENT * n_sm
+    slots = resident * n_sm
     for waves in (1, 2, 3):
         blocks = max(1, min(n_tiles, waves * slots // n_samples))
         if blocks * n_samples >= 0.95 * waves * slots:
@@ -92,6 +133,15 @@ def launch_plan(n_rows: int, n_samples: int, tile: int, n_sm: int,
         blocks = min(blocks, max_blocks)
     rows_per_block = -(-n_tiles // blocks) * tile
     return rows_per_block, -(-n_rows // rows_per_block)
+
+
+def sweep_grid(n_rows: int, n_samples: int, k: int, n_ratings: int,
+               n_sm: int) -> Tuple[int, int]:
+    """K1's (rows per block, blocks) at (K, R): waves of the blocks an SM
+    holds of its instance at its plan (:func:`sweep_resident`)."""
+    tile, smem = sweep_plan(k, n_ratings)
+    return launch_plan(n_rows, n_samples, tile, n_sm,
+                       resident=sweep_resident(k, n_ratings, smem))
 
 
 def sm_count(dev) -> int:
@@ -108,7 +158,7 @@ def sweep_launch(thetas, ps, batch: Batch, name: str, streams=None, plan=None):
     B = batch.triplets.shape[0]
     dev = thetas.device
     tile, smem = plan
-    rows_per_block, blocks = launch_plan(B, S, tile, sm_count(dev))
+    rows_per_block, blocks = sweep_grid(B, S, K, R, sm_count(dev))
     ld = (0 if streams is not None else G * K) + K ** 3 * R + 1
     part = torch.zeros((S, blocks, ld), dtype=torch.float32, device=dev)
     lib = _build.library()
@@ -144,11 +194,11 @@ def check_inputs(thetas, ps, batch: Batch, name: str):
     return plan
 
 
-def theta_in_part(n_rows: int, n_samples: int, n_genes: int, k: int, tile: int,
+def theta_in_part(n_rows: int, n_samples: int, n_genes: int, k: int, n_ratings: int,
                   n_sm: int) -> bool:
     """True where K1 keeps theta_hat in block-private partials (the blocks'
     [G, K] slots fit THETA_PART_BYTES); else it writes marginal streams."""
-    _, blocks = launch_plan(n_rows, n_samples, tile, n_sm)
+    _, blocks = sweep_grid(n_rows, n_samples, k, n_ratings, n_sm)
     return 4 * n_samples * blocks * n_genes * k <= THETA_PART_BYTES
 
 
@@ -171,7 +221,7 @@ def em_ensemble_stats(thetas, ps, batch: Batch) -> SweepStats:
         return SweepStats(theta_hat=torch.zeros_like(thetas), p_hat=torch.zeros_like(ps),
                           loglik=torch.zeros(S, dtype=torch.float32, device=dev))
     cells = K ** 3 * R
-    if theta_in_part(B, S, G, K, plan[0], sm_count(dev)):
+    if theta_in_part(B, S, G, K, R, sm_count(dev)):
         part = sweep_launch(thetas, ps, batch, KERNEL_NAME, plan=plan)
         em_ensemble_stats.launches += 1
         th, ph, ll = block_sum.block_sum([
