@@ -1732,11 +1732,7 @@ def determinism_phase(card: str, dev, train, k1_fit) -> None:
     from trigenicinteractionpredictor_tpu_torch.data import sample_synthetic_dataset
     from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
     from trigenicinteractionpredictor_tpu_torch.ops import dispatch, em_bdr, em_rsorted
-    from trigenicinteractionpredictor_tpu_torch.train.trainer import (
-        JsonlLogger,
-        _make_fit_batch,
-        fit,
-    )
+    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, fit
 
     t_phase = time.perf_counter()
     N, R = HEADLINE["n"], HEADLINE["ratings"]
@@ -1748,7 +1744,7 @@ def determinism_phase(card: str, dev, train, k1_fit) -> None:
         else:
             stats_fn = dispatch.stats_fn_for(name, k, R, row_chunk=16_384)
         ds, _, _ = sample_synthetic_dataset(N, g, 10, n_ratings=R, seed=7)
-        batch = _make_fit_batch(ds, stats_fn, dev, quiet)
+        batch = stats_fn.batch(ds, dev)[0]
         st = init_state(g, k, R, samples=s, seed=8, device=dev)
         before = {n: fn.launches for n, fn in counters.items()}
         runs = [stats_fn(st.theta, st.p, batch) for _ in range(2)]
@@ -1761,10 +1757,7 @@ def determinism_phase(card: str, dev, train, k1_fit) -> None:
             streams = not em_bdr.theta_in_part(N, s, g, k, R, em_bdr.sm_count(dev))
             assert streams == (g == 100_000), (g, streams)
             assert ("cuda-plan-scatter" in ran) == streams, ran
-        kernels = [] if name == dispatch.PLAIN_NAME else [
-            fn.kernel_name for fn in dispatch.route_kernels(name)
-        ] if name != em_rsorted.KERNEL_NAME else [em_rsorted.KERNEL_NAME, BLOCK_SUM]
-        assert all(ran.get(kn) == 2 for kn in kernels), (name, ran)
+        assert all(ran.get(fn.kernel_name) == 2 for fn in stats_fn.kernels), (name, ran)
         print(f"[14 same bits] {name} K={k} G={g} S={s} (N={N}): theta_hat, p_hat, loglik "
               f"equal over two runs (torch.equal); launches {ran}")
         del runs, batch, st, ds
@@ -1812,7 +1805,6 @@ def sync_free_check(card: str, dev) -> None:
     from trigenicinteractionpredictor_tpu_torch.models.mmsbm import init_state
     from trigenicinteractionpredictor_tpu_torch.ops import dispatch, em_hybrid, em_large_k
     from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
-    from trigenicinteractionpredictor_tpu_torch.train.trainer import JsonlLogger, _make_fit_batch
 
     N, R = HEADLINE["n"], HEADLINE["ratings"]
     for tag, k, g, s in (("K3 (a classic fit's batch)", 50, 1000, 10),
@@ -1821,7 +1813,7 @@ def sync_free_check(card: str, dev) -> None:
         st = init_state(g, k, R, samples=s, seed=8, device=dev)
         if k == 50:
             stats_fn = dispatch.stats_fn_for(em_large_k.KERNEL_NAME, k, R)
-            batch = _make_fit_batch(ds, stats_fn, dev, JsonlLogger(None, echo=False))
+            batch = stats_fn.batch(ds, dev)[0]
             assert batch.rating_order is not None and batch.stream_perm is not None
         else:
             stats_fn = em_hybrid.em_ensemble_stats

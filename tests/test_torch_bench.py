@@ -13,7 +13,7 @@ step, atol 1e-5 on theta and p and rtol 1e-5 on L; the scorers' 1e-6
 """
 
 import ast
-import functools
+import dataclasses
 import json
 import os
 
@@ -291,8 +291,8 @@ def test_launch_check_raises_when_a_routed_kernel_did_not_launch(monkeypatch):
             with pytest.raises(RuntimeError, match=name):
                 bench.check_launches(route, {**dict.fromkeys(names, 40), name: 39}, 40)
 
-    fake = functools.partial(dispatch.plain_stats)
-    fake.kernel_name = em_bdr.KERNEL_NAME
+    fake = dataclasses.replace(dispatch.stats_fn_for(dispatch.PLAIN_NAME),
+                               kernel_name=em_bdr.KERNEL_NAME)
     monkeypatch.setattr(bench, "resolve_stats_fn", lambda *a, **kw: fake)
     monkeypatch.setattr(bench, "measure_baseline", lambda args: 1000.0)
     with pytest.raises(RuntimeError, match=f"route {em_bdr.KERNEL_NAME}: kernel "

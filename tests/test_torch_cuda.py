@@ -1068,7 +1068,6 @@ def test_sweep_routes_give_the_same_bits_twice(dev, route, k, g, s, hub):
     give equal theta_hat, p_hat and loglik, with a hub gene in 40% of the
     rows at position 1 too (a gene block K4 splits over pieces)."""
     from trigenicinteractionpredictor_tpu_torch.ops import dispatch
-    from trigenicinteractionpredictor_tpu_torch.train.trainer import _make_fit_batch
 
     ds, st = _case(20_000, g, k, 2, s, seed=31, dev=dev)
     if hub:
@@ -1077,7 +1076,7 @@ def test_sweep_routes_give_the_same_bits_twice(dev, route, k, g, s, hub):
         ds = dataclasses.replace(ds, triplets=trips)
     fn = (em_rsorted.stats_fn(512) if route == em_rsorted.KERNEL_NAME
           else dispatch.stats_fn_for(route, k, 2, row_chunk=8192))
-    batch = _make_fit_batch(ds, fn, dev, JsonlLogger(None, echo=False))
+    batch = fn.batch(ds, dev)[0]
     a, b = fn(st.theta, st.p, batch), fn(st.theta, st.p, batch)
     torch.cuda.synchronize()
     for x, y in zip(a, b):

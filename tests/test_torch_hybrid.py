@@ -146,7 +146,7 @@ def test_no_stepwise_route_is_a_plan_route():
 def test_resolve_stats_fn_takes_static_rows():
     fn = dispatch.resolve_stats_fn("cuda", 3, 6000, 25, 2, static_rows=False)
     assert fn.kernel_name == em_hybrid.KERNEL_NAME
-    assert fn is em_hybrid.em_ensemble_stats
+    assert fn.stats is em_hybrid.em_ensemble_stats
     fn = dispatch.resolve_stats_fn("cuda", 3, 6000, 25, 2, static_rows=True)
     assert fn.kernel_name == em_large_k.KERNEL_NAME
     assert dispatch.resolve_stats_fn("cpu", 3, 6000, 25, 2, static_rows=False).kernel_name \

@@ -118,12 +118,12 @@ def test_a_tampered_probe_fails():
 
 
 def test_an_exception_in_plumbing_fails_the_probe(sentinel, monkeypatch):
-    """A host plan that raises fails its probe: no warning-and-pass."""
+    """A plan that raises while it is built fails its probe: no warning-and-pass."""
 
     def broken(*args, **kwargs):
         raise RuntimeError("plan builder broke")
 
-    monkeypatch.setattr(em_bdg, "make_g1_plan", broken)
+    monkeypatch.setattr(em_bdg, "device_g1_order", broken)
     k4 = next(p for p in integrity.probes(3) if p.name == "K4")
     res = integrity.run_probe(k4, "cpu")
     assert not res.ok and "plan builder broke" in res.error

@@ -413,8 +413,8 @@ def test_route(k, s, g, n_rows, expected):
     assert dispatch.route("cuda", 2, k, 2, s, n_genes=g, n_rows=n_rows) == "torch"
     fn = dispatch.resolve_stats_fn("cuda", 3, g, k, s, n_ratings=2, n_rows=n_rows)
     assert fn.kernel_name == expected
-    assert getattr(fn, "needs_g1plan", False) == (expected == BDG)
-    assert getattr(fn, "needs_plan", False) == (expected in (BD, LARGE))
+    assert fn.static_rows_only == (expected in (BDG, BD, LARGE))
+    assert fn.kernels == dispatch.route_kernels(expected)
     for backend in ("jnp", "", None):
         plain = dispatch.resolve_stats_fn("cuda", 3, g, k, s, backend=backend, row_chunk=64)
         assert plain.kernel_name == "torch" and plain.row_chunk == 64

@@ -6,7 +6,7 @@ batch's device against the host functions that build them.
 
 On the CPU the ``cuda-em-bdg`` stats function runs its kernels' plain
 versions (``bdg_estep_reference``, ``plan_scatter_reference``) along the
-trainer's own plans, so the fit below walks the route's whole path but
+route's own plans, so the fit below walks the route's whole path but
 for the kernels themselves.
 """
 
@@ -110,15 +110,16 @@ def test_the_tolerances_refuse_the_control():
     assert ll > LL_RTOL and theta > THETA_ATOL, (ll, theta)
 
 
-def _host_batch(route, trip, rat, w, g, stats_fn):
-    """The batch the host plan functions give: the plans the trainer's device
-    plans must equal."""
+def _host_batch(route, trip, rat, w, g, info):
+    """The batch the host plan functions give at the block widths of the
+    fit's ``backend`` event ``info``: the plans the route's device plans
+    must equal."""
     if route == em_bdg.KERNEL_NAME:
-        g1 = em_bdg.make_g1_plan(trip, g, wb1=stats_fn.wb1)
+        g1 = em_bdg.make_g1_plan(trip, g, wb1=info["wb1"])
         trip, rat, w = em_bdg.apply_g1_order(g1, trip, rat, w)
-        plan = em_large_g.make_scatter_plan(trip, g, wb=stats_fn.wb, positions=(1, 2))
+        plan = em_large_g.make_scatter_plan(trip, g, wb=info["wb"], positions=(1, 2))
         return make_batch(trip, rat, w, "cpu", scatter=plan, g1=g1)
-    plan = em_large_g.make_scatter_plan(trip, g, wb=stats_fn.wb)
+    plan = em_large_g.make_scatter_plan(trip, g, wb=info["wb"])
     return make_batch(trip, rat, w, "cpu", scatter=plan)
 
 
@@ -134,9 +135,9 @@ def test_the_fit_batch_plans_are_the_host_plans(route, n, g, hub):
     rat = rng.integers(0, R, n).astype(np.int32)
     w = rng.random(n).astype(np.float32)
     fn = dispatch.stats_fn_for(route, 10, R)
-    got = trainer._make_fit_batch(TripletDataset(trip, rat, w, g, R), fn, torch.device("cpu"),
-                                  QUIET)
-    want = _host_batch(route, trip, rat, w, g, fn)
+    got, info = fn.batch(TripletDataset(trip, rat, w, g, R), torch.device("cpu"))
+    assert info["wb"] == em_bd.DEFAULT_WB
+    want = _host_batch(route, trip, rat, w, g, info)
     for name in got._fields:
         a, b = getattr(got, name), getattr(want, name)
         assert (a is None) == (b is None), name

@@ -11,9 +11,9 @@ to the host to size its output (a sync each).  Here the searches are held to
 the bincount-and-cumsum offsets they replace (``_bincount_offsets``, the
 previous code) on random rows, with empty ratings, ratings and ids out of
 range and gene counts that are and are not a multiple of the block width;
-the plan the trainer attaches once per fit (``_make_fit_batch``) is held to
-the plan a call builds, field by field, and to the previous per-call plan;
-only K3's route gets one; and the plain scatter along the plan gives the
+the plan a classic fit's batch carries, built once per fit by the route's
+record (``Sweep.batch``), is held to the plan a call builds, field by
+field, and to the previous per-call plan; only K3's route gets one; and the plain scatter along the plan gives the
 plain sweep's theta_hat.  Plans are permutations and integer offsets, so
 those comparisons are exact; the scatter sums a gene's float32 marginals
 (a few dozen here) in another order than the plain sweep, which moves them
@@ -37,12 +37,8 @@ from trigenicinteractionpredictor_tpu_torch.ops import (
     em_large_k,
     em_rsorted,
 )
-from trigenicinteractionpredictor_tpu_torch.train.trainer import _make_fit_batch
-from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger
 
 torch.set_num_threads(2)
-
-QUIET = JsonlLogger(None, echo=False)
 
 
 def _bincount_offsets(sorted_key, n_bins, width=1):
@@ -106,7 +102,7 @@ def test_scatter_plan_offsets_equal_bincount_cumsum(g, wb, bad):
 def _k3_fit_batch(n, g, r, seed):
     ds, _, _ = sample_synthetic_dataset(n, g, 4, n_ratings=r, seed=seed)
     fn = dispatch.stats_fn_for(em_large_k.KERNEL_NAME, 25, r)
-    return ds, _make_fit_batch(ds, fn, torch.device("cpu"), QUIET)
+    return ds, fn.batch(ds, torch.device("cpu"))[0]
 
 
 @pytest.mark.parametrize("n,g,r,seed", [(3000, 200, 2, 0), (2500, 1000, 3, 1), (700, 40, 1, 2)])
@@ -145,11 +141,12 @@ def test_only_the_k3_route_gets_a_stream_plan(route, k):
     ds, _, _ = sample_synthetic_dataset(1500, 300, 4, n_ratings=2, seed=3)
     fn = (em_rsorted.stats_fn(64) if route == em_rsorted.KERNEL_NAME
           else dispatch.stats_fn_for(route, k, 2))
-    batch = _make_fit_batch(ds, fn, torch.device("cpu"), QUIET)
+    batch, info = fn.batch(ds, torch.device("cpu"))
     fields = ("rating_order", "rating_offsets", "stream_perm", "stream_lid", "stream_offsets")
     got = [getattr(batch, f) is not None for f in fields]
     assert got == [route == em_large_k.KERNEL_NAME] * len(fields)
-    assert getattr(fn, "needs_stream_plan", False) == (route == em_large_k.KERNEL_NAME)
+    if route == em_large_k.KERNEL_NAME:
+        assert info == {"plan_rows": 3 * ds.n_rows}
 
 
 @pytest.mark.parametrize("r,s", [(2, 3), (3, 1)])
@@ -169,3 +166,25 @@ def test_scatter_along_the_plan_is_the_sweeps_theta_hat(r, s):
                              em_large_g.DEFAULT_WB, g, k)
     want = em.em_sufficient_stats(st.theta, st.p, batch).theta_hat
     torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("route", list(dispatch._ROUTES))
+def test_each_routes_own_batch_gives_the_plain_sweeps_stats(route):
+    """Every route of ``ops/dispatch.py``: its record's fit batch (with
+    whatever plan the route builds), run through the route's stats in
+    their plain CPU form, gives the plain sweep's stats on the rows as
+    they came; and ``route_kernels`` is the record's ``kernels``.  The
+    plans reorder the rows and scatter along gene blocks, which moves
+    float32 sums by a few ulps: rtol 1e-5, atol 1e-6."""
+    g, k, r, s = 1500, 4, 2, 2
+    ds, _, _ = sample_synthetic_dataset(2000, g, k, n_ratings=r, seed=8)
+    sweep = dispatch.stats_fn_for(route, k, r, row_chunk=512)
+    assert sweep.kernel_name == route
+    assert sweep.kernels == dispatch.route_kernels(route)
+    batch = sweep.batch(ds, torch.device("cpu"))[0]
+    st = init_state(g, k, r, samples=s, seed=9, device="cpu")
+    got = sweep(st.theta, st.p, batch)
+    want = dispatch.plain_stats(st.theta, st.p,
+                                em.make_batch(ds.triplets, ds.ratings, ds.weights, "cpu"))
+    for name, a, b in zip(em.SweepStats._fields, got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)

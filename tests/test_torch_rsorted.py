@@ -24,6 +24,7 @@ import torch
 from trigenicinteractionpredictor_tpu.config import Config, EngineConfig, TrainConfig
 from trigenicinteractionpredictor_tpu.data.synthetic import sample_synthetic_dataset
 from trigenicinteractionpredictor_tpu.models.mmsbm import ModelState as JState
+from trigenicinteractionpredictor_tpu.ops import dispatch as jdispatch
 from trigenicinteractionpredictor_tpu.ops import pallas_em_rsorted as jrs
 from trigenicinteractionpredictor_tpu.ops.em import Batch as JBatch
 from trigenicinteractionpredictor_tpu.train.trainer import fit as jfit
@@ -143,9 +144,11 @@ def test_sweep_plan_range():
 
 def _reference_stats_fn(tile_b):
     """The reference's kernel as its trainer's stats_fn override, tagged as
-    its dispatch would tag it."""
+    its dispatch tags a rating-sorted kernel (the tags of its
+    ``_pallas_bdr_fn``, less the kernel name)."""
     fn = functools.partial(jrs.rsorted_em_ensemble_stats, tile_b=tile_b, interpret=True)
-    fn.needs_rsort, fn.tile_b, fn.ensemble = True, tile_b, True
+    tags = vars(jdispatch._pallas_bdr_fn(tile_b))
+    fn.__dict__.update({name: v for name, v in tags.items() if name != "kernel_name"})
     return fn
 
 
@@ -212,13 +215,13 @@ def test_stepwise_fit_matches_reference():
 
 
 def test_stepwise_refuses_a_tile_it_cannot_use():
-    """A needs_rsort function without tile_b, and a tile_b that does not
-    divide the padded minibatch, both raise ValueError."""
+    """A rating-sorted route without a whole tile (``stats_fn(0)``) is
+    refused where it is made, and a tile_b that does not divide the padded
+    minibatch where the fit starts: both raise ValueError."""
     ds, _, _ = sample_synthetic_dataset(2000, 24, 3, n_ratings=2, seed=2)
-    untiled = functools.partial(em_rsorted.rsorted_em_ensemble_stats, tile_b=64)
-    untiled.needs_rsort = True
-    with pytest.raises(ValueError, match="carries no tile_b"):
-        fit(_stepwise_cfg(), ds, device="cpu", logger=QUIET, stats_fn=untiled)
+    for untiled in (0, -64):
+        with pytest.raises(ValueError, match="at least one row"):
+            em_rsorted.stats_fn(untiled)
     with pytest.raises(ValueError, match="does not divide the padded minibatch"):
         fit(_stepwise_cfg(), ds, device="cpu", logger=QUIET, stats_fn=em_rsorted.stats_fn(96))
 

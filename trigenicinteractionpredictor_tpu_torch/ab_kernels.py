@@ -18,8 +18,9 @@ kernel table (N = 131,072 rows, R = 2):
 - K1 ``em_bdr.em_ensemble_stats`` at the headline shape (K = 10,
   G = 1000, S = 10);
 - K3 ``em_large_k.em_ensemble_stats`` at K = 50 and 72 (G = 1000, S = 10)
-  on a classic fit's batch (``train/trainer.py::_make_fit_batch``, with
-  the plan the tree attaches there, if any), and its two passes apart at
+  on a classic fit's batch (the route's ``Sweep.batch``, with its stream
+  plan; in a tree whose routes are bare functions, the same plan built
+  as that tree's trainer built it), and its two passes apart at
   K = 25, 50 and 72 (``torch.profiler`` device time of the kernels named
   ``estep_kernel`` and ``cross_kernel``, and of everything else the call
   launches, per call);
@@ -194,8 +195,6 @@ def measure(tree: str, only=()) -> dict:
         score,
     )
     from trigenicinteractionpredictor_tpu_torch.ops.em import make_batch
-    from trigenicinteractionpredictor_tpu_torch.train.trainer import _make_fit_batch
-    from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger
 
     assert os.path.abspath(port.__file__).startswith(os.path.join(os.path.abspath(tree), ""))
     dev = torch.device("cuda")
@@ -258,9 +257,14 @@ def measure(tree: str, only=()) -> dict:
             continue
         ds, _, _ = sample_synthetic_dataset(N, g, 10, n_ratings=R, seed=9)
         st = init_state(g, k, R, samples=s, seed=10, device=dev)
-        if name.startswith("K3"):  # a classic fit's batch, with whatever plan it carries
-            tb = _make_fit_batch(ds, dispatch.stats_fn_for(em_large_k.KERNEL_NAME, k, R), dev,
-                                 JsonlLogger(None, echo=False))
+        if name.startswith("K3"):  # a classic fit's batch, with its stream plan
+            sweep = dispatch.stats_fn_for(em_large_k.KERNEL_NAME, k, R)
+            if hasattr(sweep, "batch"):
+                tb = sweep.batch(ds, dev)[0]
+            else:  # a tree whose routes are bare functions: the plan its trainer built
+                tb = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+                tb = em_large_k.with_stream_plan(tb, em_large_k.stream_plan(
+                    tb.triplets, tb.ratings, R, ds.n_genes))
         else:
             tb = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
         if name.startswith("K1"):

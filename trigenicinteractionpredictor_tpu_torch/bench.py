@@ -13,9 +13,9 @@ with ``shape`` added when the shape is not the headline one.
   triplets, G = 1000, K = 10, R = 2, S = 10 restarts) resident on the card;
   each step is ``likelihood_freq`` = 10 chained whole-ensemble EM sweeps
   (stats + normalize + likelihood), the step ``fit`` runs: the dispatched
-  stats function (``ops/dispatch.py::resolve_stats_fn`` with this shard's
-  rows), the fit's batch and host plans (``train/trainer.py::_make_fit_batch``)
-  and ``parallel/sharded_em.py::sharded_multi_step`` on the one-rank mesh.
+  sweep route (``ops/dispatch.py::resolve_stats_fn`` with this shard's
+  rows), the fit's batch with the route's plan (``Sweep.batch``) and
+  ``parallel/sharded_em.py::sharded_multi_step`` on the one-rank mesh.
 - Unit: one (triplet, restart) EM update, the unit of the pure-Python
   stand-in (``baselines/python_reference.py``, loaded by path so both
   engines divide by the same code); ``vs_baseline`` is the ratio.
@@ -57,8 +57,6 @@ from trigenicinteractionpredictor_tpu_torch.ops.scoring import (
 )
 from trigenicinteractionpredictor_tpu_torch.parallel.mesh import single_device_mesh
 from trigenicinteractionpredictor_tpu_torch.parallel.sharded_em import sharded_multi_step
-from trigenicinteractionpredictor_tpu_torch.train.trainer import _make_fit_batch
-from trigenicinteractionpredictor_tpu_torch.utils.logging import JsonlLogger
 
 N = 131072
 G = 1000
@@ -141,9 +139,10 @@ def device_name(dev: torch.device) -> str:
 
 
 def make_engine_step(ds, stats_fn, dev, n_inner: int = CHUNK) -> Callable:
-    """The chained step ``fit`` runs, on ``ds``'s rows: ``step(states) ->
-    (states, ll_hist [n_inner, S])``, row i the L before sweep i."""
-    batch = _make_fit_batch(ds, stats_fn, dev, JsonlLogger(None, echo=False))
+    """The chained step ``fit`` runs with the route ``stats_fn``, on ``ds``'s
+    rows: ``step(states) -> (states, ll_hist [n_inner, S])``, row i the L
+    before sweep i."""
+    batch = stats_fn.batch(ds, dev)[0]
     degrees = torch.as_tensor(ds.degrees(), device=dev)
     mesh = single_device_mesh()
 

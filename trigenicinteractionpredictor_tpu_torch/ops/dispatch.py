@@ -40,19 +40,17 @@ No route returns the rating-sorted sweep K9 (``ops/em_rsorted.py``), as
 the reference's dispatch never returns its rating-sorted kernel: a caller
 asks for it with ``fit(..., stats_fn=em_rsorted.stats_fn(tile_b))``.
 
-The returned function takes (thetas [S,G,K], ps [S,...,R], batch) and
-carries ``kernel_name``, which the trainer records in events, checkpoints
-and ``FitResult``; a plan route's function also carries ``needs_plan`` or
-``needs_g1plan`` and its block widths, K3's ``needs_stream_plan``, and the
-trainer attaches the plans.
-``route_kernels`` names the kernel wrappers each route launches, whose
-counts show that a sweep ran on its kernels.
+Each route is one :class:`Sweep` in one table (:data:`_ROUTES`): its
+stats function, the kernel wrappers it launches, and the function that
+builds a fit's batch with its plan, which lives in the op module that
+reads the plan.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -65,7 +63,7 @@ from trigenicinteractionpredictor_tpu_torch.ops import (
     em_large_g,
     em_large_k,
 )
-from trigenicinteractionpredictor_tpu_torch.ops.em import em_sufficient_stats
+from trigenicinteractionpredictor_tpu_torch.ops.em import Batch, em_sufficient_stats, make_batch
 
 PLAIN_NAME = "torch"
 MAX_RESTARTS = 65535  # every kernel puts S on the grid's y axis
@@ -176,6 +174,33 @@ def plain_stats(thetas, ps, batch, row_chunk: int = 0):
 plain_stats.kernel_name = PLAIN_NAME
 
 
+def plain_batch(ds, dev) -> Tuple[Batch, None]:
+    """A fit's batch with no plan: ``ds``'s rows on ``dev``."""
+    return make_batch(ds.triplets, ds.ratings, ds.weights, dev), None
+
+
+@dataclasses.dataclass(frozen=True)
+class Sweep:
+    """A sweep route, callable as its stats function ``(thetas, ps, batch)
+    -> SweepStats``.  ``batch(ds, dev)``: a classic fit's batch of a
+    ``TripletDataset``'s rows on ``dev`` with the route's plan, and the
+    plan's fields for the fit's ``backend`` event (None: no plan).
+    ``static_rows_only``: the plan bakes one whole-dataset row order, which
+    stepwise EM does not keep.  ``tile_b`` > 0: rows per tile of a
+    rating-sorted route, whose stepwise minibatches are sorted too."""
+
+    kernel_name: str
+    stats: Callable
+    kernels: tuple = ()
+    tile_b: int = 0
+    row_chunk: int = 0
+    static_rows_only: bool = False
+    batch: Callable = plain_batch
+
+    def __call__(self, thetas, ps, batch):
+        return self.stats(thetas, ps, batch)
+
+
 def in_hybrid_band(k: int, n_samples: int, n_genes: int, static_rows: bool) -> bool:
     """True where the reference's dispatch gives its hybrid kernel."""
     band = HYBRID_BAND.get(n_samples, ())
@@ -211,66 +236,68 @@ def route(device_type: str, arity: int, k: int, n_ratings: int, n_samples: int,
     return PLAIN_NAME
 
 
-def stats_fn_for(name: str, k: int = 0, n_ratings: int = 2, row_chunk: int = 0,
-                 wb: int = em_bd.DEFAULT_WB) -> Callable:
-    """The stats function of a route name (``wb``: the scatter plan's gene
-    block width; the bdg block wb1 follows from K and R)."""
-    if name == em_bdr.KERNEL_NAME:
-        return em_bdr.em_ensemble_stats
-    if name == em_large_k.KERNEL_NAME:
-        return em_large_k.em_ensemble_stats
-    if name == em_hybrid.KERNEL_NAME:
-        return em_hybrid.em_ensemble_stats
-    if name == PLAIN_NAME:
-        fn = functools.partial(plain_stats, row_chunk=row_chunk)
-        fn.row_chunk = row_chunk
-    elif name == em_bdg.KERNEL_NAME:
-        wb1 = em_bdg.bdg_plan(k, n_ratings)[1]
-        fn = functools.partial(em_bdg.bdg_em_ensemble_stats, wb1=wb1, wb=wb)
-        fn.wb, fn.wb1 = wb, wb1
-        fn.needs_g1plan = True  # g1 row order + 2-position scatter plan
-    elif name in (em_bd.KERNEL_NAME, em_large_g.KERNEL_NAME):
-        impl = (em_bd.bd_em_ensemble_stats if name == em_bd.KERNEL_NAME
-                else em_large_g.large_g_ensemble_stats)
-        fn = functools.partial(impl, wb=wb)
-        fn.wb = wb
-        fn.needs_plan = True    # 3-position scatter plan
-    else:
+# One record a route, with the kernel wrappers a sweep launches, each once.
+# Every kernel route ends in the block sum of its partials, and every route
+# whose E-step writes marginal streams in the plan scatter.  K1 writes
+# streams, and so launches the plan scatter too, only where its private
+# theta_hats would pass ``em_bdr.THETA_PART_BYTES`` (``em_bdr.theta_in_part``):
+# not at any shape its route takes in the bench.
+_SUMS = (block_sum.block_sum,)
+_SCATTER = (em_bd.plan_scatter, *_SUMS)
+_ROUTES = {sweep.kernel_name: sweep for sweep in (
+    Sweep(PLAIN_NAME, plain_stats),
+    Sweep(em_bdr.KERNEL_NAME, em_bdr.em_ensemble_stats, (em_bdr.em_ensemble_stats, *_SUMS)),
+    Sweep(em_large_k.KERNEL_NAME, em_large_k.em_ensemble_stats,
+          (em_large_k.em_ensemble_stats, *_SCATTER), batch=em_large_k.fit_batch),
+    Sweep(em_hybrid.KERNEL_NAME, em_hybrid.em_ensemble_stats,
+          (em_hybrid.hybrid_stats, *_SCATTER)),
+    Sweep(em_bdg.KERNEL_NAME, em_bdg.bdg_em_ensemble_stats, (em_bdg.bdg_estep, *_SCATTER),
+          static_rows_only=True, batch=em_bdg.fit_batch),
+    Sweep(em_bd.KERNEL_NAME, em_bd.bd_em_ensemble_stats, (em_bd.em_streams, *_SCATTER),
+          static_rows_only=True, batch=em_large_g.fit_batch),
+    Sweep(em_large_g.KERNEL_NAME, em_large_g.large_g_ensemble_stats,
+          (em_bd.em_streams, *_SCATTER), static_rows_only=True, batch=em_large_g.fit_batch),
+)}
+
+
+def _route_entry(name: str) -> Sweep:
+    if name not in _ROUTES:
         raise ValueError(f"unknown sweep route {name!r}")
-    fn.kernel_name = name
-    return fn
+    return _ROUTES[name]
+
+
+def stats_fn_for(name: str, k: int = 0, n_ratings: int = 2, row_chunk: int = 0,
+                 wb: int = em_bd.DEFAULT_WB) -> Sweep:
+    """The :class:`Sweep` of a route name (``row_chunk``: the plain
+    sweep's; ``wb``: the scatter plan's gene block width; the bdg block
+    wb1 follows from K and R)."""
+    sweep = _route_entry(name)
+    if name == PLAIN_NAME:
+        return dataclasses.replace(
+            sweep, stats=functools.partial(plain_stats, row_chunk=row_chunk), row_chunk=row_chunk)
+    if not sweep.static_rows_only:
+        return sweep
+    # The plan routes: their stats and their batch take the same block widths.
+    widths = {"wb": wb}
+    if name == em_bdg.KERNEL_NAME:
+        widths["wb1"] = em_bdg.bdg_plan(k, n_ratings)[1]
+    return dataclasses.replace(sweep, stats=functools.partial(sweep.stats, **widths),
+                               batch=functools.partial(sweep.batch, **widths))
 
 
 def route_kernels(name: str) -> tuple:
     """The kernel wrappers a sweep of route ``name`` launches, each once a
     sweep (none for the plain sweep); their ``launches`` counts show that
-    the route ran on its kernels.  Every kernel route ends in the block sum
-    of its partials, and every route whose E-step writes marginal streams
-    in the plan scatter.  K1 writes streams, and so launches the plan
-    scatter too, only where its private theta_hats would pass
-    ``em_bdr.THETA_PART_BYTES`` (``em_bdr.theta_in_part``): not at any
-    shape its route takes in the bench."""
-    sums = (block_sum.block_sum,)
-    kernels = {
-        PLAIN_NAME: (),
-        em_bdr.KERNEL_NAME: (em_bdr.em_ensemble_stats, *sums),
-        em_large_k.KERNEL_NAME: (em_large_k.em_ensemble_stats, em_bd.plan_scatter, *sums),
-        em_hybrid.KERNEL_NAME: (em_hybrid.hybrid_stats, em_bd.plan_scatter, *sums),
-        em_bdg.KERNEL_NAME: (em_bdg.bdg_estep, em_bd.plan_scatter, *sums),
-        em_bd.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter, *sums),
-        em_large_g.KERNEL_NAME: (em_bd.em_streams, em_bd.plan_scatter, *sums),
-    }
-    if name not in kernels:
-        raise ValueError(f"unknown sweep route {name!r}")
-    return kernels[name]
+    the route ran on its kernels."""
+    return _route_entry(name).kernels
 
 
 def resolve_stats_fn(
     device, arity: int, n_genes: int, k: int, n_samples: int, n_ratings: int = 2,
     row_chunk: int = 0, backend: str = "auto", n_rows: int = 0,
     static_rows: bool = True,
-) -> Callable:
-    """The sweep-stats function for this backend, device and shape.
+) -> Sweep:
+    """The sweep route for this backend, device and shape.
     ``row_chunk`` goes to the plain sweep (the reference's
     ``EngineConfig.jnp_row_chunk``); the kernels need none.  The trainer
     passes ``static_rows=not stepwise``."""

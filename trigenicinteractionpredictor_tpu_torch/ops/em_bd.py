@@ -188,9 +188,6 @@ def bd_em_ensemble_stats(thetas, ps, batch: Batch, wb: int = DEFAULT_WB) -> Swee
     return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
 
 
-bd_em_ensemble_stats.kernel_name = KERNEL_NAME
-
-
 def bd_em_ensemble_stats_reference(thetas, ps, batch: Batch,
                                    wb: int = DEFAULT_WB) -> SweepStats:
     """:func:`bd_em_ensemble_stats` through both plain versions, on any

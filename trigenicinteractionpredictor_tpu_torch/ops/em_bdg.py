@@ -27,10 +27,12 @@ from trigenicinteractionpredictor_tpu_torch.ops import _build, block_sum, em_bd,
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
     Batch,
     SweepStats,
+    make_batch,
     position_marginals,
     segment_rows,
 )
-from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import _check_ids
+from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import _check_ids, device_scatter_plan
+from trigenicinteractionpredictor_tpu_torch.utils.tracing import span
 
 KERNEL_NAME = "cuda-em-bdg"
 ESTEP_NAME = "cuda-em-bdg-estep"
@@ -88,6 +90,23 @@ def device_g1_order(batch: Batch, n_genes: int, wb1: int = DEFAULT_WB1) -> Batch
     return batch._replace(triplets=trip, ratings=batch.ratings[order],
                           weights=batch.weights[order], g1_lid=(trip[:, 0] % wb1).contiguous(),
                           g1_offsets=torch.searchsorted(key, starts, out_int32=True))
+
+
+def fit_batch(ds, dev, wb1: int = DEFAULT_WB1, wb: int = em_bd.DEFAULT_WB):
+    """K4's fit batch: ``ds``'s rows on ``dev`` in g1 order with a
+    2-position scatter plan of the reordered rows, built there (the plans
+    :func:`make_g1_plan` and ``make_scatter_plan`` give)."""
+    batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+    with span("fit.plan"):
+        with span("fit.plan.g1"):
+            batch = device_g1_order(batch, ds.n_genes, wb1)
+        with span("fit.plan.scatter"):
+            # K4 keeps position 1 in its E-step: slots of positions 2 and 3.
+            slots = batch.triplets[:, 1:].T.reshape(-1)
+            perm, lid, offsets = device_scatter_plan(slots, ds.n_genes, wb)
+    return (batch._replace(scatter_perm=perm, scatter_lid=lid, scatter_offsets=offsets),
+            {"wb": wb, "wb1": wb1, "g1_blocks": -(-ds.n_genes // wb1),
+             "plan_rows": int(perm.shape[0])})
 
 
 def _smem_bytes(k: int, n_ratings: int, tile: int, wb1: int) -> int:
@@ -237,9 +256,6 @@ def bdg_em_ensemble_stats(thetas, ps, batch: Batch, wb1: int = DEFAULT_WB1,
     em_bd.plan_scatter(streams, batch.scatter_perm, batch.scatter_lid,
                        batch.scatter_offsets, wb, G, K, out=theta_hat)
     return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=ll)
-
-
-bdg_em_ensemble_stats.kernel_name = KERNEL_NAME
 
 
 def bdg_em_ensemble_stats_reference(thetas, ps, batch: Batch, wb1: int = DEFAULT_WB1,

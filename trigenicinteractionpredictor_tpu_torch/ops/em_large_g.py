@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from trigenicinteractionpredictor_tpu_torch.ops import em_bd
-from trigenicinteractionpredictor_tpu_torch.ops.em import Batch, SweepStats
+from trigenicinteractionpredictor_tpu_torch.ops.em import Batch, SweepStats, make_batch
+from trigenicinteractionpredictor_tpu_torch.utils.tracing import span
 
 KERNEL_NAME = "cuda-em-large-g"
 DEFAULT_WB = em_bd.DEFAULT_WB
@@ -96,11 +97,18 @@ def device_scatter_plan(genes: torch.Tensor, n_genes: int, wb: int = DEFAULT_WB)
     return perm.to(torch.int32), lid, offsets
 
 
+def fit_batch(ds, dev, wb: int = DEFAULT_WB):
+    """K5's and K6's fit batch: ``ds``'s rows on ``dev`` with the
+    3-position plan :func:`make_scatter_plan` gives, built there."""
+    batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+    with span("fit.plan"), span("fit.plan.scatter"):
+        perm, lid, offsets = device_scatter_plan(batch.triplets.T.reshape(-1), ds.n_genes, wb)
+    return (batch._replace(scatter_perm=perm, scatter_lid=lid, scatter_offsets=offsets),
+            {"wb": wb, "plan_rows": int(perm.shape[0])})
+
+
 def large_g_ensemble_stats(thetas, ps, batch: Batch, wb: int = DEFAULT_WB) -> SweepStats:
     """One whole-ensemble sweep at any G: ``ops/em_bd.py``'s E-step streams
     and plan scatter.  ``batch`` carries a 3-position scatter plan of
     ``wb``-gene blocks for exactly its rows."""
     return em_bd.bd_em_ensemble_stats(thetas, ps, batch, wb)
-
-
-large_g_ensemble_stats.kernel_name = KERNEL_NAME

@@ -24,10 +24,9 @@ The rating order and the gene-sorted plan of the streams' slots form the
 call's :class:`StreamPlan` (:func:`stream_plan`): stable sorts on the rows'
 device, their offsets by ``torch.searchsorted`` on the sorted keys, so no
 value comes back to the host and the call never waits on the card.  A
-classic fit's rows never change, so the trainer builds the plan once per
-fit and attaches it to the batch (``Batch.rating_order`` .. ``stream_offsets``;
-:data:`em_ensemble_stats` carries ``needs_stream_plan``); a batch without
-one (a stepwise minibatch) gets its plan on every call.
+classic fit's rows never change, so its batch carries the plan, built
+once (:func:`fit_batch`; ``Batch.rating_order`` .. ``stream_offsets``); a
+batch without one (a stepwise minibatch) gets its plan on every call.
 """
 
 from __future__ import annotations
@@ -41,7 +40,9 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
     Batch,
     SweepStats,
     em_sufficient_stats,
+    make_batch,
 )
+from trigenicinteractionpredictor_tpu_torch.utils.tracing import span
 
 KERNEL_NAME = "cuda-em-sweep-large-k"
 MIN_K, MAX_K = 21, 72
@@ -179,11 +180,14 @@ def stream_plan(triplets, ratings, n_ratings: int, n_genes: int) -> StreamPlan:
     return StreamPlan(order, off, perm, lid, offsets)
 
 
-def with_stream_plan(batch: Batch, plan: StreamPlan) -> Batch:
-    """``batch`` carrying ``plan`` (built for exactly its rows)."""
-    return batch._replace(rating_order=plan.order, rating_offsets=plan.off,
-                          stream_perm=plan.perm, stream_lid=plan.lid,
-                          stream_offsets=plan.offsets)
+def fit_batch(ds, dev):
+    """K3's fit batch: ``ds``'s rows on ``dev`` with their :class:`StreamPlan`."""
+    batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
+    with span("fit.plan"):
+        sp = stream_plan(batch.triplets, batch.ratings, ds.n_ratings, ds.n_genes)
+    return (batch._replace(rating_order=sp.order, rating_offsets=sp.off, stream_perm=sp.perm,
+                           stream_lid=sp.lid, stream_offsets=sp.offsets),
+            {"plan_rows": int(sp.perm.shape[0])})
 
 
 def batch_stream_plan(batch: Batch, n_ratings: int, n_genes: int) -> StreamPlan:
@@ -266,4 +270,3 @@ def em_ensemble_stats(
 
 em_ensemble_stats.launches = 0
 em_ensemble_stats.kernel_name = KERNEL_NAME
-em_ensemble_stats.needs_stream_plan = True  # the trainer attaches a StreamPlan

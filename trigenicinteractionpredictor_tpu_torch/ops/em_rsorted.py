@@ -20,23 +20,26 @@ added up in block order by ``ops/block_sum.py``.
 
 No dispatch route returns this sweep, as the reference's dispatch never
 returns its kernel: a caller asks for it with ``fit(...,
-stats_fn=stats_fn(tile_b))``, whose function carries ``needs_rsort`` and
-``tile_b``, and the trainer sorts the split (classic EM) or every
-minibatch (stepwise EM) into the plan's layout.
+stats_fn=stats_fn(tile_b))``, whose record sorts a classic fit's split
+into the plan's layout (:func:`fit_batch`) and carries ``tile_b``, so the
+trainer sorts every stepwise minibatch too.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from trigenicinteractionpredictor_tpu_torch.ops import _build, block_sum, em_bdr
+from trigenicinteractionpredictor_tpu_torch.ops.dispatch import Sweep
 from trigenicinteractionpredictor_tpu_torch.ops.em import (
     Batch,
     SweepStats,
     em_sufficient_stats,
+    make_batch,
 )
 from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (  # noqa: F401
     DEFAULT_TILE_B,
@@ -44,6 +47,7 @@ from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (  # noqa: F40
     apply_rating_sort,
     rating_sort_pad,
 )
+from trigenicinteractionpredictor_tpu_torch.utils.tracing import span
 
 KERNEL_NAME = "cuda-em-rsorted"
 # The largest K whose one-rating slice of p[s], its cross-stats and an
@@ -153,12 +157,23 @@ rsorted_em_ensemble_stats.launches = 0
 rsorted_em_ensemble_stats.kernel_name = KERNEL_NAME
 
 
-def stats_fn(tile_b: int = DEFAULT_TILE_B) -> Callable:
-    """The sweep as a ``fit`` stats function: it carries ``needs_rsort``
-    and ``tile_b``, so the trainer sorts rows into plan tiles of ``tile_b``
-    rows and attaches the tile table."""
-    fn = functools.partial(rsorted_em_ensemble_stats, tile_b=tile_b)
-    fn.kernel_name = KERNEL_NAME
-    fn.tile_b = tile_b
-    fn.needs_rsort = True
-    return fn
+def fit_batch(ds, dev, tile_b: int = DEFAULT_TILE_B):
+    """K9's fit batch: ``ds``'s rows sorted into plan tiles on the host,
+    with the tile table, on ``dev``."""
+    with span("fit.plan"):
+        plan = rating_sort_pad(np.asarray(ds.ratings), ds.n_ratings, tile=tile_b)
+        rows = apply_rating_sort(plan, np.asarray(ds.triplets), np.asarray(ds.ratings),
+                                 np.asarray(ds.weights))
+    return (make_batch(*rows, dev, tile_rating=plan.tile_r),
+            {"tile_b": tile_b, "padded_rows": int(plan.n_rows)})
+
+
+def stats_fn(tile_b: int = DEFAULT_TILE_B) -> Sweep:
+    """The sweep as a ``fit`` stats function on plan tiles of ``tile_b``
+    rows (ValueError unless ``tile_b`` > 0)."""
+    if tile_b <= 0:
+        raise ValueError(f"{KERNEL_NAME} needs plan tiles of at least one row, "
+                         f"got tile_b={tile_b}")
+    return Sweep(KERNEL_NAME, functools.partial(rsorted_em_ensemble_stats, tile_b=tile_b),
+                 kernels=(rsorted_em_ensemble_stats, block_sum.block_sum), tile_b=tile_b,
+                 batch=functools.partial(fit_batch, tile_b=tile_b))

@@ -2,18 +2,17 @@
 ``train/trainer.py::fit`` and ``_run_stepwise``).
 
 Classic (full-batch) EM: all S restarts ride a leading axis of one state;
-each sweep is one call of the dispatched stats function (a kernel route on
-CUDA, chosen by ``cfg.engine.backend`` and the shape; the plain sweep,
-chunked by ``cfg.engine.jnp_row_chunk`` rows, elsewhere or with
-``backend="jnp"``) plus ``normalize_from_stats``.  The large-G routes get
-their host plans, built once per fit, on the batch.  The host loop runs the
-sweeps between likelihood checks, records every ``likelihood_freq`` sweeps
+each sweep is one call of the dispatched route (``ops/dispatch.py::Sweep``:
+a kernel route on CUDA, chosen by ``cfg.engine.backend`` and the shape;
+the plain sweep, chunked by ``cfg.engine.jnp_row_chunk`` rows, elsewhere
+or with ``backend="jnp"``) plus ``normalize_from_stats``.  The route builds
+the fit's batch with its plan, once (``Sweep.batch``).  The host loop runs
+the sweeps between likelihood checks, records every ``likelihood_freq`` sweeps
 the L of the state *before* the chunk's last sweep (the reference's
 semantics), early-stops on |dL| < tol one check late (the trace is read
 after the next chunk is queued, so the read overlaps device work), and
-checkpoints.  A stats function that carries ``needs_rsort`` and ``tile_b``
-(``ops/em_rsorted.py::stats_fn``) gets the split rating-sorted into plan
-tiles and the tile table on the batch; stepwise EM sorts every minibatch.
+checkpoints.  Stepwise EM sorts every minibatch into plan tiles for a
+route that carries ``tile_b`` (``ops/em_rsorted.py::stats_fn``).
 
 Stepwise EM (``cfg.train.minibatch > 0``): see :func:`_run_stepwise`.
 
@@ -93,6 +92,7 @@ from trigenicinteractionpredictor_tpu_torch.models.proposals import merge_split_
 from trigenicinteractionpredictor_tpu_torch.ops import _build
 from trigenicinteractionpredictor_tpu_torch.ops.dispatch import (
     PLAIN_NAME,
+    Sweep,
     resolve_stats_fn,
     route,
     stats_fn_for,
@@ -102,13 +102,6 @@ from trigenicinteractionpredictor_tpu_torch.ops.em import (
     SweepStats,
     log_likelihood,
     make_batch,
-)
-from trigenicinteractionpredictor_tpu_torch.ops.em_bdg import device_g1_order
-from trigenicinteractionpredictor_tpu_torch.ops.em_large_g import device_scatter_plan
-from trigenicinteractionpredictor_tpu_torch.ops.em_large_k import stream_plan, with_stream_plan
-from trigenicinteractionpredictor_tpu_torch.ops.rsort_plan import (
-    apply_rating_sort,
-    rating_sort_pad,
 )
 from trigenicinteractionpredictor_tpu_torch.ops.stepwise import stepwise_group, zero_stats_like
 from trigenicinteractionpredictor_tpu_torch.parallel.mesh import (
@@ -222,53 +215,6 @@ def _check_ids(ds: TripletDataset) -> None:
             raise ValueError(f"gene ids must lie in [0, {G}) and ratings in [0, {R})")
 
 
-def _make_fit_batch(ds: TripletDataset, stats_fn, dev, log):
-    """The fit's device batch, with the plans the chosen sweep needs (the
-    reference's ``train/trainer.py:358-455``): for the rating-sorted sweep,
-    rows stably sorted by rating and padded per class to whole plan tiles,
-    with the tile table, on the host; the others on the batch's device,
-    with no value read back to the host: for bdg, rows in g1 order plus a
-    2-position scatter plan of the reordered rows
-    (``ops/em_bdg.py::device_g1_order``); for the other plan routes, a
-    3-position scatter plan (``ops/em_large_g.py::device_scatter_plan``);
-    for K3, the rating order and the gene-sorted plan of its streams
-    (``ops/em_large_k.py::stream_plan``), which its calls would otherwise
-    build every sweep.  Each is built once per fit and is the plan its
-    host function (``make_g1_plan``, ``make_scatter_plan``) gives."""
-    trip, rat, w = ds.triplets, ds.ratings, ds.weights
-    if getattr(stats_fn, "needs_rsort", False):
-        with span("fit.plan"):
-            plan = rating_sort_pad(np.asarray(rat), ds.n_ratings, tile=stats_fn.tile_b)
-            trip, rat, w = apply_rating_sort(plan, np.asarray(trip), np.asarray(rat),
-                                             np.asarray(w))
-        log.log("backend", kernel=stats_fn.kernel_name, tile_b=stats_fn.tile_b,
-                padded_rows=int(plan.n_rows))
-        return make_batch(trip, rat, w, dev, tile_rating=plan.tile_r)
-    batch = make_batch(trip, rat, w, dev)
-    g1_plan = getattr(stats_fn, "needs_g1plan", False)
-    if g1_plan or getattr(stats_fn, "needs_plan", False):
-        info = {}
-        with span("fit.plan"):
-            if g1_plan:
-                with span("fit.plan.g1"):
-                    batch = device_g1_order(batch, ds.n_genes, stats_fn.wb1)
-                info = {"wb1": stats_fn.wb1, "g1_blocks": -(-ds.n_genes // stats_fn.wb1)}
-            with span("fit.plan.scatter"):
-                # bdg keeps position 1 in its E-step: slots of positions 2 and 3.
-                slots = batch.triplets[:, 1:] if g1_plan else batch.triplets
-                perm, lid, offsets = device_scatter_plan(slots.T.reshape(-1), ds.n_genes,
-                                                         stats_fn.wb)
-        log.log("backend", kernel=stats_fn.kernel_name, wb=stats_fn.wb, **info,
-                plan_rows=int(perm.shape[0]))
-        return batch._replace(scatter_perm=perm, scatter_lid=lid, scatter_offsets=offsets)
-    if getattr(stats_fn, "needs_stream_plan", False):
-        with span("fit.plan"):
-            plan = stream_plan(batch.triplets, batch.ratings, ds.n_ratings, ds.n_genes)
-        log.log("backend", kernel=stats_fn.kernel_name, plan_rows=int(plan.perm.shape[0]))
-        return with_stream_plan(batch, plan)
-    return batch
-
-
 TP_NAME = "jnp-tp"  # the dispatch record of the tensor-parallel sweep (the reference's)
 
 
@@ -299,13 +245,17 @@ def fit(
     """Fit ``cfg.train.samples`` restarts of the MMSBM on a training split.
 
     ``resume`` -- checkpoint to continue from (same shapes).
-    ``stats_fn`` -- override the dispatched sweep-stats function.
+    ``stats_fn`` -- override the dispatched route: a ``Sweep``, or a bare
+    stats function (no plan; named by its ``kernel_name``).
     ``init_states`` -- restart-stacked [S, ...] initial states (tensors or
     arrays, e.g. the JAX package's) instead of the seeded random or
     spectral init (the refine and split-merge rounds pass theirs).
     ``mesh`` -- the mesh of ranks (default: ``cfg.mesh`` over the ranks of
     the default process group, ``parallel/mesh.make_mesh``).
     """
+    if stats_fn is not None and not isinstance(stats_fn, Sweep):
+        stats_fn = Sweep(getattr(stats_fn, "kernel_name", None)
+                         or getattr(stats_fn, "__name__", type(stats_fn).__name__), stats_fn)
     with span("fit"), contextlib.ExitStack() as phase:
         phase.enter_context(span("fit.prepare"))
         _check_scope(cfg, train_ds.n_genes)
@@ -335,7 +285,7 @@ def fit(
 
         with span("fit.route"):
             if use_tp:
-                stats_fn = None
+                stats_fn = Sweep(TP_NAME, None)  # tp_step runs the sweep; the batch has no plan
                 log.log("backend", kernel=TP_NAME, model_shards=model_size)
                 kernel = route(dev.type, arity, K, R, s_local, G, n_rows=rows_local)
                 if kernel != PLAIN_NAME:
@@ -348,21 +298,18 @@ def fit(
                     dev, arity, G, K, s_local, n_ratings=R, row_chunk=cfg.engine.jnp_row_chunk,
                     backend=cfg.engine.backend, n_rows=rows_local, static_rows=not stepwise,
                 )
-            if stepwise and (getattr(stats_fn, "needs_plan", False)
-                             or getattr(stats_fn, "needs_g1plan", False)):
-                # A plan route bakes one whole-dataset row order; stepwise reshuffles
-                # the rows every epoch (the reference's trainer.py:228-236).
+            if stepwise and stats_fn.static_rows_only:
+                # Stepwise reshuffles the rows every epoch (the reference's
+                # trainer.py:228-236).
                 log.log("backend", kernel=PLAIN_NAME, reason="static row order vs stepwise")
                 stats_fn = stats_fn_for(PLAIN_NAME, row_chunk=cfg.engine.jnp_row_chunk or 16384)
             # Both engine precision modes run exact float32 here: the kernels use
             # no tensor cores and the plain path runs with TF32 off.
             dispatch_info = {
-                "kernel": TP_NAME if use_tp else (
-                    getattr(stats_fn, "kernel_name", None)
-                    or getattr(stats_fn, "__name__", type(stats_fn).__name__)),
-                "tile_b": int(getattr(stats_fn, "tile_b", 0) or 0),
+                "kernel": stats_fn.kernel_name,
+                "tile_b": stats_fn.tile_b,
                 "bdr_group": 0,
-                "row_chunk": int(getattr(stats_fn, "row_chunk", 0)),
+                "row_chunk": stats_fn.row_chunk,
                 "precision": cfg.engine.precision,
                 "backend": cfg.engine.backend,
                 "device": str(dev),
@@ -442,10 +389,9 @@ def fit(
         with span("fit.make_batch"):
             whole = (lo, hi) == (0, train_ds.n_rows)
             shard_ds = train_ds if whole else train_ds.select(slice(lo, hi))
-            if use_tp:
-                batch = make_batch(shard_ds.triplets, shard_ds.ratings, shard_ds.weights, dev)
-            else:
-                batch = _make_fit_batch(shard_ds, stats_fn, dev, log)
+            batch, plan_info = stats_fn.batch(shard_ds, dev)
+            if plan_info is not None:
+                log.log("backend", kernel=stats_fn.kernel_name, **plan_info)
             del shard_ds
         # The degrees of the whole split, on every rank: normalizing with a
         # shard's own degrees would be wrong for every gene the shard sees less.
@@ -766,7 +712,7 @@ def _run_stepwise(
     cfg: Config,
     train_ds: TripletDataset,
     states: ModelState,
-    stats_fn,
+    stats_fn: Sweep,
     dev: torch.device,
     log,
     checkpoint_path: Optional[str],
@@ -826,17 +772,9 @@ def _run_stepwise(
     # minibatches of every epoch share one shape (the reference's
     # trainer.py:947-974).  Order within a minibatch is free, and the class
     # padding is weight 0.
-    rsort = getattr(stats_fn, "needs_rsort", False)
-    tile = ft = 0
+    tile, ft = stats_fn.tile_b, 0
+    rsort = tile > 0
     if rsort:
-        tile = getattr(stats_fn, "tile_b", 0)
-        if not tile:
-            raise ValueError(
-                "stats_fn sets needs_rsort but carries no tile_b; the "
-                "stepwise rating-sort pads per-class to whole kernel tiles "
-                "and needs the tile size (attach fn.tile_b, or use "
-                "ops.em_rsorted.stats_fn)"
-            )
         if (mb // data_size) % tile:
             raise ValueError(f"tile_b={tile} does not divide the padded minibatch of "
                              f"{mb} rows (minibatch={tcfg.minibatch}) split over "

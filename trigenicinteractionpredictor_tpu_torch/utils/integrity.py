@@ -22,7 +22,8 @@ R = 2 unless stated:
 - ``K7`` (``cuda-em-hybrid``) at K = 25, G = 3072, N = 4096, S = 2 (K7
   takes K >= 21, so not the reference's K = 10);
 - ``K4`` (``cuda-em-bdg``: K4 + K5b) and ``K5`` (``cuda-em-bd-plan``: K5a +
-  K5b) through the port's host plans, on two identical lanes;
+  K5b) on a fit's batch with the route's plans (``Sweep.batch``), on two
+  identical lanes;
 - ``K6`` (``cuda-em-large-g``: K5a + K5b at S = 1);
 - ``K2`` (``cuda-score``) on two distinct states and 4096 rows.
 
@@ -50,6 +51,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from trigenicinteractionpredictor_tpu_torch.data.packing import TripletDataset
 from trigenicinteractionpredictor_tpu_torch.ops import (
     em_bd,
     em_bdg,
@@ -59,7 +61,7 @@ from trigenicinteractionpredictor_tpu_torch.ops import (
     em_large_k,
     score,
 )
-from trigenicinteractionpredictor_tpu_torch.ops.dispatch import PLAIN_NAME
+from trigenicinteractionpredictor_tpu_torch.ops.dispatch import PLAIN_NAME, stats_fn_for
 from trigenicinteractionpredictor_tpu_torch.ops.em import em_sufficient_stats, make_batch
 
 _TOL = 5e-3
@@ -146,31 +148,20 @@ def _sweep_runner(stats_fn, seed: int = 0):
     return run
 
 
-def _plan_runner(kind: str):
-    """A probe of a plan route (K4 with its g1 plan and 2-position scatter
-    plan, or the 3-position plan of K5 / K6) on two identical lanes (S = 2)
-    or one (S = 1), each held to the single-state CPU stats."""
+def _plan_runner(route: str):
+    """A probe of a plan route (K4, K5 or K6) on its fit batch, on two
+    identical lanes (S = 2) or one (S = 1), each held to the single-state
+    CPU stats."""
 
     def run(dev, shape, tamper):
-        one = dict(shape, s=0)
-        trip, rat, w, theta, p = _case(one)
+        trip, rat, w, theta, p = _case(dict(shape, s=0))
         want = em_sufficient_stats(theta, p, make_batch(trip, rat, w, "cpu"))
         g, k, r, lanes = shape["g"], shape["k"], shape["r"], shape["s"]
-        if kind == "bdg":
-            wb1 = em_bdg.bdg_plan(k, r)[1]
-            g1 = em_bdg.make_g1_plan(trip, g, wb1=wb1)
-            trip, rat, w = em_bdg.apply_g1_order(g1, trip, rat, w)
-            plan = em_large_g.make_scatter_plan(trip, g, positions=(1, 2))
-            batch = make_batch(trip, rat, w, dev, scatter=plan, g1=g1)
-            fn = functools.partial(em_bdg.bdg_em_ensemble_stats, wb1=wb1)
-        else:
-            plan = em_large_g.make_scatter_plan(trip, g)
-            batch = make_batch(trip, rat, w, dev, scatter=plan)
-            fn = (em_bd.bd_em_ensemble_stats if kind == "bd"
-                  else em_large_g.large_g_ensemble_stats)
+        sweep = stats_fn_for(route, k, r)
+        batch = sweep.batch(TripletDataset(trip, rat, w, g, r), dev)[0]
         thetas = theta.to(dev).expand(lanes, g, k).contiguous()
         ps = p.to(dev).expand((lanes,) + tuple(p.shape)).contiguous()
-        got, ms = _timed(dev, lambda: tamper(fn(thetas, ps, batch)))
+        got, ms = _timed(dev, lambda: tamper(sweep(thetas, ps, batch)))
         return _stats_pairs(got, want, lanes), ms
 
     return run
@@ -201,9 +192,9 @@ def probes(arity: int = 3, n: int = 32768, n_genes: int = 512, k: int = 10,
               _sweep_runner(lambda: em_large_k.em_ensemble_stats, seed=2)),
         Probe("K7", em_hybrid.KERNEL_NAME, dict(n=4096, g=3072, k=25, r=r, s=2),
               _sweep_runner(lambda: em_hybrid.em_ensemble_stats, seed=1)),
-        Probe("K4", em_bdg.KERNEL_NAME, dict(base, s=2), _plan_runner("bdg")),
-        Probe("K5", em_bd.KERNEL_NAME, dict(base, s=2), _plan_runner("bd")),
-        Probe("K6", em_large_g.KERNEL_NAME, dict(base, s=1), _plan_runner("large")),
+        Probe("K4", em_bdg.KERNEL_NAME, dict(base, s=2), _plan_runner(em_bdg.KERNEL_NAME)),
+        Probe("K5", em_bd.KERNEL_NAME, dict(base, s=2), _plan_runner(em_bd.KERNEL_NAME)),
+        Probe("K6", em_large_g.KERNEL_NAME, dict(base, s=1), _plan_runner(em_large_g.KERNEL_NAME)),
         Probe("K2", score.KERNEL_NAME, dict(base, n=min(n, 4096), s=2), _run_k2),
     ]
 
