@@ -134,6 +134,47 @@ def test_k1_row_pass_matches_plain(dev, k, r, hub):
     np.testing.assert_allclose(ll.cpu(), want_ll.float().cpu(), rtol=1e-5)
 
 
+# K1's and K5a's output digests (SHA-256 of the outputs' bytes in order, first
+# 16 hex digits) on _k1_rows(2850, ...), whose last tile holds 7 rows, from the
+# kernel before its E-step moved into the header K4 shares; taken on the card
+# named.
+K1_BITS_CARD = ("NVIDIA H100 80GB HBM3", 132)
+K1_BITS = {
+    (3, 2, False): ("d3f643d03daa89ef", "fd560b7974a8cdd3"),
+    (10, 2, False): ("3df30405e70aaef6", "6e49b212ddd93068"),
+    (10, 2, True): ("0888a6430cd2a02d", "5157a757de6c8f6a"),
+    (13, 3, False): ("033abcaf661b8258", "9d874ae8f535ab79"),
+    (20, 3, True): ("6aa5ea0825b5370e", "9ca3995d6edda2fb"),
+}
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("k,r,hub", sorted(K1_BITS))
+def test_k1_shared_row_pass_keeps_the_bits(dev, k, r, hub):
+    """K1's register-resident E-step, shared with K4 (which alone lets a
+    warp with no row of a short tile skip the pass), gives K1 (private
+    theta_hat) and K5a (streams) the bits recorded before the sharing, on
+    a short last tile.  The grid, and with it the order of every sum,
+    follows the card's SM count, so the record is checked on the card it
+    was taken on."""
+    props = torch.cuda.get_device_properties(dev)
+    if (props.name, props.multi_processor_count) != K1_BITS_CARD:
+        pytest.skip(f"bits recorded on {K1_BITS_CARD}, not {props.name}")
+    tb, st = _k1_rows(2850, 400, k, r, 3, seed=61 + k, dev=dev, hub=hub)
+    assert (tb.triplets.shape[0] % em_bdr.sweep_plan(k, r)[0]) in range(1, 57)
+    got = (_digest(em_bdr.em_ensemble_stats(st.theta, st.p, tb)),
+           _digest(em_bd.em_streams(st.theta, st.p, tb)))
+    assert got == K1_BITS[(k, r, hub)]
+
+
 @pytest.mark.parametrize("k,r", [(1, 1), (4, 2), (7, 3), (10, 2), (10, 3), (13, 2), (16, 1),
                                  (17, 3), (20, 2), (20, 3)])
 def test_k1_grid_counts_the_blocks_an_sm_holds(dev, k, r):
@@ -543,6 +584,73 @@ def test_bdg_kernel_matches_plain(dev, k, r, s, g, hub_pos):
             em_bdg.bdg_em_ensemble_stats(st.theta, st.p, tb, wb1=wb1, wb=64),
             em_bdg.bdg_em_ensemble_stats_reference(st.theta, st.p, tb, wb1=wb1, wb=64),
         )
+
+
+def _k4_rows(g, k, r, wb1, seed, dev):
+    """30,000 rows in g1 order whose gene blocks of wb1 genes hold 1 row
+    (blocks 0..9), 65 rows (blocks 10..19: a full tile and a 1-row tail
+    tile where a piece holds the block), 4,000 rows (block 20, run over
+    many pieces), and the rest over the genes past block 20; ratings drawn
+    per row, 5% of the rows weighted 0."""
+    rng = np.random.default_rng(seed)
+    g1 = [q * wb1 + q % wb1 for q in range(10)]
+    g1 += [q * wb1 + int(x) for q in range(10, 20) for x in rng.integers(0, wb1, 65)]
+    g1 += list(20 * wb1 + rng.integers(0, wb1, 4000))
+    g1 += list(rng.integers(21 * wb1, g, 30_000 - len(g1)))
+    trip = rng.integers(0, g, size=(30_000, 3)).astype(np.int32)
+    trip[:, 0] = np.asarray(g1, np.int32)
+    rat = rng.integers(0, r, size=30_000).astype(np.int32)
+    w = np.where(rng.random(30_000) < 0.05, 0.0, 1.0).astype(np.float32)
+    plan = em_bdg.make_g1_plan(trip, g, wb1=wb1)
+    return make_batch(*em_bdg.apply_g1_order(plan, trip, rat, w), dev, g1=plan)
+
+
+@pytest.mark.parametrize("k,r", [(1, 1), (1, 3), (3, 2), (7, 3), (10, 1), (10, 2), (10, 3),
+                                 (13, 2), (20, 2), (20, 3)])
+def test_k4_row_pass_on_short_tiles_matches_plain(dev, k, r):
+    """K4 on K1's register-resident E-step and carve against its plain
+    version in float64: K = 1, odd K, 10 and 20, R = 1..3, at the plan's
+    gene block and at 32, on gene blocks of 1 row, of 65 rows (a 1-row
+    tail tile), a hub gene block split over many pieces (S = 10: pieces of
+    ~5 tiles) and weight-0 rows, at test_bdg_kernel_matches_plain's
+    tolerances; and the same bits twice.  In float64 and at R = 1 with p
+    from 0.2 to 1 as test_k1_row_pass_matches_plain, for its reasons."""
+    g, s = 40_000, 10
+    st = init_state(g, k, r, samples=s, seed=71 + k, device=dev)
+    p = st.p
+    if r == 1:
+        gen = torch.Generator(device=dev).manual_seed(k)
+        p = 0.2 + 0.8 * torch.rand(p.shape, device=dev, generator=gen)
+    for wb1 in {em_bdg.bdg_plan(k, r)[1], 32}:
+        tb = _k4_rows(g, k, r, wb1, seed=73 + k, dev=dev)
+        launches = em_bdg.bdg_estep.launches
+        got = em_bdg.bdg_estep(st.theta, p, tb, wb1)
+        again = em_bdg.bdg_estep(st.theta, p, tb, wb1)
+        want = em_bdg.bdg_estep_reference(
+            st.theta.double(), p.double(), tb._replace(weights=tb.weights.double()), wb1)
+        torch.cuda.synchronize()
+        assert em_bdg.bdg_estep.launches == launches + 2
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+        want = [x.float().cpu() for x in want]
+        np.testing.assert_allclose(got[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got[1].cpu(), want[1], rtol=1e-6, atol=1e-4)
+        np.testing.assert_allclose(got[2].cpu(), want[2], rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(got[3].cpu(), want[3], rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,r", [(1, 1), (4, 2), (7, 3), (10, 2), (10, 3), (13, 2), (16, 1),
+                                 (17, 3), (20, 2), (20, 3)])
+def test_k4_plan_counts_the_blocks_an_sm_holds(dev, k, r):
+    """The blocks an SM holds of K4's instance for (K, R) at its plan's
+    shared memory (the CUDA occupancy calculator) are the ones the plan
+    counts (ops/em_bdg.py _resident, bdg_resident): four at K = 10, R = 2."""
+    from trigenicinteractionpredictor_tpu_torch.ops import _build
+
+    tile, wb1 = em_bdg.bdg_plan(k, r)
+    smem = em_bdg._smem_bytes(k, r, tile, wb1)
+    held = _build.library().tip_em_bdg_occupancy(k, r, smem)
+    assert held == em_bdg._resident(k, r, smem) == em_bdg.bdg_resident(k, r)
 
 
 def test_large_g_kernels_refuse_what_they_do_not_take(dev):

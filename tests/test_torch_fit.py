@@ -386,8 +386,10 @@ def test_tile_plans_mirror_the_smem_layout(k, r):
     """K1's, K4's and K9's host plans keep their K and R ranges and size
     their tile buffers byte for byte: K1 takes K = 1..20 at R <= 3 with
     the largest tile that fits its own carve (no T/U), and still every
-    tile the shared carve fitted; K4 adds two [wb1, K] blocks to the
-    shared carve, K9 carves one rating and reaches K = 28."""
+    tile the shared carve fitted; K4 adds two [wb1, K] blocks to K1's
+    carve, which it shares, at the largest tile that fits, and counts the
+    blocks an SM of its instance (four at K = 10, R = 2, else three, fewer
+    where shared memory binds); K9 carves one rating and reaches K = 28."""
     from trigenicinteractionpredictor_tpu_torch.ops import em_bdg, em_bdr, em_rsorted
 
     limit = 232_448 - 1024
@@ -399,9 +401,15 @@ def test_tile_plans_mirror_the_smem_layout(k, r):
     assert all(_k1_tile_bytes(k, r, t) > limit for t in em_bdr.TILES if t > tile)
     assert tile >= max(t for t in em_bdr.TILES if _tile_bytes(k, r, t) <= limit)
     tile4, wb1 = em_bdg.bdg_plan(k, r)
-    assert em_bdg._smem_bytes(k, r, tile4, wb1) == _tile_bytes(k, r, tile4) + 8 * wb1 * k
-    assert em_bdg._smem_bytes(k, r, tile4, wb1) <= limit
+    smem4 = em_bdg._smem_bytes(k, r, tile4, wb1)
+    assert smem4 == _k1_tile_bytes(k, r, tile4) + 8 * wb1 * k
+    assert smem4 <= limit
     assert em_bdg._tile(k, r, wb1) == tile4
+    assert all(_k1_tile_bytes(k, r, t) + 8 * wb1 * k > limit for t in em_bdr.TILES if t > tile4)
+    bound = 4 if (k, r) == (10, 2) else 3
+    assert em_bdg._resident(k, r, 0) == bound
+    assert em_bdg._resident(k, r, smem4) == min(bound, 233_472 // (smem4 + 1024))
+    assert em_bdg.bdg_resident(k, r) == em_bdg._resident(k, r, smem4) >= 1
     tile9, smem9 = em_rsorted.sweep_plan(k, 512)
     assert smem9 == _tile_bytes(k, 1, tile9) <= limit
 

@@ -441,12 +441,17 @@ def test_route_boundaries_follow_the_reference():
 
 def test_bdg_plan_covers_k1_range():
     for k in range(1, em_bdr.MAX_K + 1):
-        for r in (2, 3):
+        for r in (1, 2, 3):
             tile, wb1 = em_bdg.bdg_plan(k, r)
             assert em_bdg._smem_bytes(k, r, tile, wb1) <= 232_448
-    # the widest gene block that keeps the tile buffers' three blocks an SM
-    # (70,304 bytes of tile buffers at K = 10, R = 2: wb1 = 128 would cost one)
+    # the widest gene block that keeps the (10, 2) instance's four blocks an
+    # SM (K1's carve, 49,120 bytes at K = 10, R = 2: wb1 = 64 makes 54,240,
+    # 128 would cost one)
     assert em_bdg.bdg_plan(10, 2) == (64, 64)
+    assert em_bdg.bdg_resident(10, 2) == 4
+    assert em_bdg._smem_bytes(10, 2, 64, 64) == 54_240
+    # three blocks an SM elsewhere: the widest gene block that keeps them
+    assert em_bdg.bdg_plan(10, 3) == (64, 128) and em_bdg.bdg_resident(10, 3) == 3
     assert em_bdg.bdg_plan(21, 2) is None
 
 
@@ -511,6 +516,9 @@ def test_fit_through_plan_route_matches_reference_fit(route):
     plans = [kw for event, kw in log if event == "backend"]
     assert len(plans) == 1 and plans[0]["kernel"] == route
     assert plans[0]["plan_rows"] == (2 if route == BDG else 3) * ds.n_rows
+    if route == BDG:  # the plan that runs: its gene block and K4's blocks an SM
+        assert plans[0]["wb1"] == em_bdg.bdg_plan(k, 2)[1]
+        assert plans[0]["resident"] == em_bdg.bdg_resident(k, 2) == 3
     np.testing.assert_allclose(got.final_loglik, want.final_loglik, rtol=FIT_RTOL)
     np.testing.assert_allclose(got.ll_trace, want.ll_trace, rtol=FIT_RTOL)
 

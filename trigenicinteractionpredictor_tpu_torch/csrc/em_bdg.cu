@@ -18,38 +18,49 @@
 // narrows the gene block wb1 and the row tile until the buffers below fit
 // shared memory); any G; S <= 65535; any B >= 1.
 //
-// What bounds it on the H100: the E-step algebra is K1's (register-tiled
-// products over each tile's rows sorted by rating inside the block,
-// csrc/em_tile.cuh; 80 registers, 3 blocks per SM, the gene block's two
-// [wb1, K] buffers on top of the tile buffers).  Against
-// K5a (em_sweep.cu's streams form) it reads position 1's theta as one contiguous [wb1, K]
-// block per gene block visited (instead of a scattered row per row) and
-// keeps position 1 out of the streams and out of the scatter (2 of 3
-// positions' bytes), at the cost of summing into the block accumulator and
-// one flush of it per gene block visited.
+// What bounds it on the H100: the E-step algebra is K1's
+// (csrc/em_row_estep.cuh: K1's carve of the tile buffers, with no T/U,
+// and its register-resident pass per row over each tile's rows sorted by
+// rating inside the block; the gene block's two [wb1, K] buffers at the
+// carve's end).  At G = 100,000 a gene block holds a few dozen rows, so
+// most gene blocks a piece visits cost a tile cut short by the block's
+// end, and every tile pays the row load, the sort, the gather, the keys
+// and the cross-stats with their barriers: the count of tiles paces the
+// kernel more than its arithmetic.
+// The plan (ops/em_bdg.py bdg_plan) spends the shared memory the carve
+// leaves on blocks an SM or on wider gene blocks (fewer, fuller tiles), as
+// the instance's launch bound allows.  Against K5a (em_sweep.cu's streams
+// form) it reads position 1's theta as one contiguous [wb1, K] block per
+// gene block visited (instead of a scattered row per row) and keeps
+// position 1 out of the streams and out of the scatter (2 of 3 positions'
+// bytes), at the cost of summing into the block accumulator and one flush
+// of it per gene block visited.
 //
 // Design, with every sum in an order fixed by the rows and the host plan
 // (no atomics, the same bits from run to run): grid (pieces of piece_rows
 // consecutive rows, S).  A block walks the gene blocks its piece overlaps
 // (g1 CSR offsets); for each it stages theta[s, block rows] and a zeroed
-// accumulator [wb1, K] in shared memory, runs the tile algebra of
-// em_tile.cuh over the rows of that gene block (a tile cut short by the
-// block's end costs only its rows' slot quads) and adds the tile's
+// accumulator [wb1, K] in shared memory, runs the tile algebra over the
+// rows of that gene block (in a tile cut short by the block's end, the
+// warps that own no row skip the E-step's pass) and adds the tile's
 // position-1 marginals into the accumulator, each gene's rows summed in row
 // order by one thread (tip::keyed_sum; one writer per element).  Then it
-// flushes the accumulator: a gene block whose rows lie
-// inside the piece is stored into theta_hat; one that runs in from the
-// piece before leaves its share in part_th as the piece's head, one that
-// begins here and runs on as its tail.  fixup_kernel, as plan_scatter.cu's,
+// flushes the accumulator: a gene block whose rows lie inside the piece is
+// stored into theta_hat; one that runs in from the piece before leaves its
+// share in part_th as the piece's head, one that begins here and runs on
+// as its tail.  fixup_kernel, as plan_scatter.cu's,
 // gives each run-on gene block to the piece it began in, which adds its
 // tail and the heads of the following pieces in piece order and stores the
 // sum once, so a hub gene block split over many pieces is summed by a
 // fixed order too.  p * cross and w log D go into the block's slot of the
-// partial buffer part_p (tip::flush_part), which csrc/block_sum.cu sums in
-// block order.  Splitting by restart keeps the block at [wb1, K] per
-// buffer: [wb1, S*K] would be 205 KB at wb1 = 512, S = 10, K = 10.
+// partial buffer part_p (tip::reg::flush_part), which csrc/block_sum.cu
+// sums in block order.  Splitting by restart keeps the block at [wb1, K]
+// per buffer: [wb1, S*K] would be 205 KB at wb1 = 512, S = 10, K = 10.
+// Instances as K1's: KC = kc_of(K) at three blocks an SM, and K = 10,
+// R = 2 with R and the 64-row tile fixed at four (64 registers, no spill;
+// with the tile a runtime value it spilled 24 bytes).
 
-#include "em_tile.cuh"
+#include "em_row_estep.cuh"
 
 namespace {
 
@@ -63,7 +74,9 @@ __device__ inline int block_of(const int* __restrict__ off, int Q, int i) {
   return lo;
 }
 
-__global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
+// RC: R fixed at compile time, and the tile at kPassRows (0: any R, any tile).
+template <int KC, int RC>
+__global__ void __launch_bounds__(tip::kThreads, RC ? 4 : 3) em_bdg_kernel(
     const float* __restrict__ theta,   // [S, G, K]
     const float* __restrict__ p,       // [S, K, K, K, R]
     const int* __restrict__ trip,      // [B, 3], g1 plan order
@@ -75,18 +88,22 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
     float* __restrict__ theta_hat,     // [S, G, K], zeroed by the caller
     float* __restrict__ part_th,       // [pieces, 2, S, wb1 K]: heads, tails
     float* __restrict__ part_p,        // [S, pieces, K^3 R + 1]
-    int B, int G, int K, int R, int Q1, int wb1, int tile, int piece_rows) {
+    int B, int G, int K_in, int R_in, int Q1, int wb1, int tile_in, int piece_rows) {
+  const int K = KC == 10 ? 10 : K_in;  // the exact instance knows its K
+  const int R = RC ? RC : R_in;
+  // With R fixed the tile is too, so the carve's offsets are constants.
+  const int tile = RC ? tip::reg::kPassRows : tile_in;
   const int s = blockIdx.y, S = gridDim.y;
   const int K3 = K * K * K, SK = S * K;
   const int tid = threadIdx.x, nt = blockDim.x;
   extern __shared__ float smem[];
-  const tip::Tile t = tip::carve(smem, K, R, tile);
+  const tip::Tile t = tip::reg::carve<KC>(smem, K, R, tile);
   const int RS = t.RS, W = wb1 * K;
   float* th_blk = t.rest;         // [wb1][K] theta rows of the gene block
   float* acc = th_blk + wb1 * K;  // [wb1][K] its theta_hat share
   int* key = t.link;
 
-  tip::stage_p(t, p + (size_t)s * K3 * R);
+  tip::reg::stage_p<KC>(t, p + (size_t)s * K3 * R);
   const float* th_s = theta + (size_t)s * G * K;
   float ll_acc = 0.f;
   const int r0 = blockIdx.x * piece_rows;
@@ -139,10 +156,11 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
       }
       __syncthreads();
 
-      ll_acc += tip::estep(t, n);
+      ll_acc += tip::reg::estep_rows<KC, true>(t, n);
 
       // Position 1: each gene's rows summed in row order by one thread,
-      // into the accumulator.
+      // into the accumulator.  The barrier after the keys covers A and
+      // scale.
       for (int row = tid; row < n; row += nt)
         key[row] = t.wv[row] != 0.f ? t.gene[row] : -1;
       __syncthreads();
@@ -156,13 +174,16 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
         streams[((size_t)(pos - 1) * B + row0 + row) * SK + s * K + k] =
             tip::marginal(t, pos, k, row);
       }
-      tip::cross_acc(t, n);  // ends synced: acc is complete for this tile
+      // No barrier: warps with no cross item go on to the next tile's row
+      // metadata, which nothing above reads, and whose barrier comes
+      // before anything they read is overwritten.
+      tip::cross_acc(t, n, false);
     }
+    __syncthreads();  // the accumulator is complete
 
     // Flush: inside the piece into theta_hat, a head or a tail into part_th.
     // Its addresses are computed here from q and the block's indices, so
-    // none is held in a register across the tile loop (80 registers, no
-    // spill).
+    // none is held in a register across the tile loop.
     {
       const int p0 = blockIdx.x * piece_rows, p1 = min(B, p0 + piece_rows);
       const bool head = g1_off[q] < p0;
@@ -181,7 +202,7 @@ __global__ void __launch_bounds__(tip::kThreads, 3) em_bdg_kernel(
     __syncthreads();  // before the next gene block overwrites th_blk, acc
   }
   float* pp = part_p + ((size_t)s * gridDim.x + blockIdx.x) * ((size_t)K3 * R + 1);
-  tip::flush_part(t, pp, ll_acc, pp + (size_t)K3 * R);
+  tip::reg::flush_part<KC>(t, pp, ll_acc, pp + (size_t)K3 * R);
 }
 
 // Each run-on gene block to the piece it began in: its tail plus the heads
@@ -207,6 +228,40 @@ __global__ void fixup_kernel(const int* __restrict__ g1_off,
   }
 }
 
+template <int KC, int RC = 0>
+int launch(const void* theta, const void* p, const void* trip, const void* rat,
+           const void* w, const void* g1_lid, const void* g1_off, void* streams,
+           void* theta_hat, void* part_th, void* part_p, int S, int B, int G, int K,
+           int R, int Q1, int wb1, int tile, int piece_rows, int threads,
+           int smem_bytes, cudaStream_t stream) {
+  // Set every launch: past 48 KB less the static buffer the default refuses.
+  cudaError_t e = cudaFuncSetAttribute(
+      em_bdg_kernel<KC, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((B + piece_rows - 1) / piece_rows, S);
+  em_bdg_kernel<KC, RC><<<grid, threads, smem_bytes, stream>>>(
+      (const float*)theta, (const float*)p, (const int*)trip, (const int*)rat,
+      (const float*)w, (const int*)g1_lid, (const int*)g1_off, (float*)streams,
+      (float*)theta_hat, (float*)part_th, (float*)part_p, B, G, K, R, Q1, wb1,
+      tile, piece_rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  fixup_kernel<<<grid, 256, 0, stream>>>((const int*)g1_off, (const float*)part_th,
+                                         (float*)theta_hat, B, G, K, Q1, wb1, piece_rows);
+  return (int)cudaGetLastError();
+}
+
+template <int KC, int RC = 0>
+int occupancy(int smem_bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      em_bdg_kernel<KC, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, em_bdg_kernel<KC, RC>,
+                                                      tip::kThreads, smem_bytes);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
 }  // namespace
 
 // Launch both kernels on `stream`; returns cudaGetLastError() (0 on
@@ -220,21 +275,39 @@ extern "C" int tip_em_bdg(const void* theta, const void* p, const void* trip,
                           void* part_th, void* part_p, int S, int B, int G, int K,
                           int R, int Q1, int wb1, int tile, int piece_rows,
                           int threads, int smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        em_bdg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (K == 10 && R == 2 && tile == tip::reg::kPassRows)
+    return launch<10, 2>(theta, p, trip, rat, w, g1_lid, g1_off, streams, theta_hat,
+                         part_th, part_p, S, B, G, K, R, Q1, wb1, tile, piece_rows,
+                         threads, smem_bytes, st);
+#define TIP_BDG(KC)                                                              \
+  case KC:                                                                       \
+    return launch<KC>(theta, p, trip, rat, w, g1_lid, g1_off, streams, theta_hat, \
+                      part_th, part_p, S, B, G, K, R, Q1, wb1, tile, piece_rows,  \
+                      threads, smem_bytes, st)
+  switch (K >= 1 && K <= 20 ? tip::reg::kc_of(K) : 0) {
+    TIP_BDG(4);
+    TIP_BDG(8);
+    TIP_BDG(10);
+    TIP_BDG(12);
+    TIP_BDG(16);
+    TIP_BDG(20);
   }
-  const dim3 grid((B + piece_rows - 1) / piece_rows, S);
-  em_bdg_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)theta, (const float*)p, (const int*)trip, (const int*)rat,
-      (const float*)w, (const int*)g1_lid, (const int*)g1_off, (float*)streams,
-      (float*)theta_hat, (float*)part_th, (float*)part_p, B, G, K, R, Q1, wb1,
-      tile, piece_rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  fixup_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const int*)g1_off, (const float*)part_th, (float*)theta_hat, B, G, K, Q1,
-      wb1, piece_rows);
-  return (int)cudaGetLastError();
+#undef TIP_BDG
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of (K, R)'s instance one SM holds at smem_bytes each (the CUDA
+// occupancy calculator), or minus a CUDA error.
+extern "C" int tip_em_bdg_occupancy(int K, int R, int smem_bytes) {
+  if (K == 10 && R == 2) return occupancy<10, 2>(smem_bytes);
+  switch (K >= 1 && K <= 20 ? tip::reg::kc_of(K) : 0) {
+    case 4: return occupancy<4>(smem_bytes);
+    case 8: return occupancy<8>(smem_bytes);
+    case 10: return occupancy<10>(smem_bytes);
+    case 12: return occupancy<12>(smem_bytes);
+    case 16: return occupancy<16>(smem_bytes);
+    case 20: return occupancy<20>(smem_bytes);
+  }
+  return -(int)cudaErrorInvalidValue;
 }

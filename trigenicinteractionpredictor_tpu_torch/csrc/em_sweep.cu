@@ -42,29 +42,17 @@
 //   for the block's whole run; per tile the rows are sorted by rating
 //   inside the block (tip::load_rows) and the cross-stats are a
 //   register-tiled product over each rating's rows (tip::cross_acc;
-//   csrc/em_tile.cuh, which K4 and K9 share, gives its layout);
-// - the E-step (estep_rows below) is one register-resident pass per row:
-//   four lanes own a row, lane j its l = j, j + 4, ...; each holds the
-//   row's theta3 and its partial A3 in registers and walks p[s, k, l, :, r]
-//   once per (k, l): t = sum_m th3[m] p, A3[m] += th1[k] th2[l] p from the
-//   same p values, then A1[k] += th2[l] t and A2[l] += th1[k] t.  A1[k] and
-//   A3 are summed over the four lanes by shuffles (a fixed order), so
-//   there is no T/U buffer and no barrier inside the E-step: the key sum's
-//   barrier after its keys (or, for the streams, one barrier) orders its
-//   writes before their readers.  2 K^3 + 3 K^2 multiply-adds a row, with
-//   no padded (l, m) at K = 10.  At tile 64 every lane of the block owns a
-//   row.  p[s] is staged for it as [r][k][l][LS]: LS is K rounded up to a
-//   whole, odd number of float4s, so the four lanes' rows of p fall in four
-//   different bank quads, and a rating's slice starts 16 words (mod 32)
-//   after the last, so a warp that mixes two ratings reads conflict-free;
-// - K is a template parameter of the E-step (its registers are indexed at
-//   compile time): the K = 10 instance is exact, K = 1..20 otherwise run
-//   in the instance of K rounded up to 4, with zero pads past K.  The main
-//   path's K = 10, R = 2 has an instance with R fixed too: its buffers sit
-//   at fixed offsets, which frees the registers for four blocks an SM (64
-//   registers, no spill, 49 KB each; with R a runtime value 64 registers
-//   spill, and three blocks an SM ran K1 ~10% slower, PERF.md section 6);
-//   every other instance takes up to 80 registers, three blocks an SM;
+//   csrc/em_tile.cuh gives its layout);
+// - the E-step is one register-resident pass per row on K1's own carve and
+//   p staging, with no T/U buffer and no barrier inside it (tip::reg in
+//   csrc/em_row_estep.cuh, which K4 shares): the key sum's barrier after
+//   its keys (or, for the streams, one barrier) orders its writes before
+//   their readers.  The main path's K = 10, R = 2 has an instance with R
+//   fixed too: its buffers sit at fixed offsets, which frees the registers
+//   for four blocks an SM (64 registers, no spill, 49 KB each; with R a
+//   runtime value 64 registers spill, and three blocks an SM ran K1 ~10%
+//   slower, PERF.md section 6); every other instance takes up to 80
+//   registers, three blocks an SM;
 // - every block owns a slot [LD] of the partial buffer part [S, blocks,
 //   LD]: its p * cross [K,K,K,R] and its sum w log D (flush_part), and,
 //   for K1, its private theta_hat [G, K] in front of them, LD = G K + K^3 R
@@ -84,169 +72,9 @@
 //   theta_hats would pass the plan's memory budget (large G x K).
 // Weight-0 rows are inert: their scale is 0 and they add nothing.
 
-#include "em_tile.cuh"
+#include "em_row_estep.cuh"
 
 namespace {
-
-// The floats of one row of p[s, k, l, :, r] in K1's staging: KC rounded up
-// to a whole float4, and to an odd number of them.
-__host__ __device__ constexpr int p_row_stride(int kc) {
-  return ((kc + 3) / 4) % 2 ? (kc + 3) / 4 * 4 : (kc + 3) / 4 * 4 + 4;
-}
-
-// The floats of one rating's slice [K][KC][LS], rounded up to 16 mod 32.
-__host__ __device__ constexpr int p_rating_stride(int k, int kc) {
-  return k * kc * p_row_stride(kc) + (48 - k * kc * p_row_stride(kc) % 32) % 32;
-}
-
-// The instance that runs K (ops/em_bdr.py sweep_kc mirrors it).
-__host__ __device__ constexpr int kc_of(int k) { return k == 10 ? 10 : (k + 3) & ~3; }
-
-// The tile buffers of csrc/em_tile.cuh with K1's own p staging and no T/U:
-// p_sm [R][K][KC][LS] (rating stride p_rating_stride), cross [R][K][K4][K4],
-// then only the keys and the keyed sum's lists (27 tile + 256 words) where
-// the shared carve has T/U, then theta, A and the per-slot and per-row
-// vectors as tip::carve lays them (ops/em_bdr.py sweep_smem_bytes mirrors
-// it byte for byte).
-template <int KC>
-__device__ inline tip::Tile carve(float* smem, int K, int R, int tile) {
-  tip::Tile t;
-  t.K = K;
-  t.R = R;
-  t.tile = tile;
-  t.RS = tile;
-  t.K4 = (K + 3) & ~3;
-  t.NS = ((tile + 3) & ~3) + 4 * (R - 1);
-  const int NS = t.NS, K4 = t.K4;
-  t.p_sm = smem;
-  t.cross = t.p_sm + R * p_rating_stride(K, KC);
-  t.TV = t.cross + R * K * K4 * K4;
-  t.link = reinterpret_cast<int*>(t.TV);
-  t.th = t.TV + 27 * tile + 32 * tip::kBuckets;
-  t.A = t.th + 3 * K4 * NS;
-  t.wvs = t.A + 3 * K * NS;
-  t.scale = t.wvs + NS;
-  t.wv = t.scale + NS;
-  t.gene = reinterpret_cast<int*>(t.wv + tile);
-  t.rr = t.gene + 3 * tile;
-  t.slot = t.rr + tile;
-  t.seg = t.slot + tile;
-  t.rest = reinterpret_cast<float*>(t.seg + 8);
-  return t;
-}
-
-// Stage p[s] in K1's layout (zeros past K), zero the cross-stats and the
-// theta buffer (its pads stay 0).  The caller syncs before use.
-template <int KC>
-__device__ inline void stage_p(const tip::Tile& t, const float* __restrict__ p_s) {
-  constexpr int LS = p_row_stride(KC);
-  const int K = t.K, K4 = t.K4, R = t.R, RST = p_rating_stride(K, KC);
-  for (int i = threadIdx.x; i < R * RST; i += blockDim.x) {
-    const int r = i / RST, rest = i - r * RST;
-    const int m = rest % LS, kl = rest / LS, l = kl % KC, k = kl / KC;
-    t.p_sm[i] = (k < K && l < K && m < K) ? p_s[((size_t)(k * K + l) * K + m) * R + r] : 0.f;
-  }
-  for (int i = threadIdx.x; i < R * K * K4 * K4; i += blockDim.x) t.cross[i] = 0.f;
-  for (int i = threadIdx.x; i < 3 * K4 * t.NS; i += blockDim.x) t.th[i] = 0.f;
-}
-
-// A1..A3 and scale = w/D of the tile's n rows, one pass over p per row:
-// row tid / 4, lane j = tid % 4 takes l = j, j + 4, ... (see the header).
-// Enter with the rows loaded (tip::load_rows, synced); writes A at the
-// rows' slots and scale at every used slot (0 where the weight is 0: pads
-// and weight-0 rows), with no barrier: the caller syncs before they are
-// read.  Returns this thread's share of sum w log D.
-template <int KC>
-__device__ inline float estep_rows(const tip::Tile& t, int n) {
-  constexpr int LS = p_row_stride(KC), LQ = (KC + 3) / 4;
-  constexpr unsigned kAll = 0xffffffffu;
-  const int K = t.K, K4 = t.K4, NS = t.NS;
-  const int j = threadIdx.x & 3, row = threadIdx.x >> 2;
-  const bool valid = row < n;  // the other lanes run row 0 and write nothing
-  const int s = t.slot[valid ? row : 0];
-  const float* th1 = t.th + s;
-  const float* th2 = th1 + K4 * NS;
-  const float* th3 = th2 + K4 * NS;
-  float x3[KC], a3[KC], x2[LQ], a2[LQ];
-#pragma unroll
-  for (int m = 0; m < KC; ++m) {
-    x3[m] = th3[m * NS];
-    a3[m] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < LQ; ++i) {
-    x2[i] = j + 4 * i < KC ? th2[(j + 4 * i) * NS] : 0.f;
-    a2[i] = 0.f;
-  }
-  const float* pk = t.p_sm + t.rr[valid ? row : 0] * p_rating_stride(K, KC) + j * LS;
-  float d = 0.f;
-  for (int k = 0; k < K; ++k, pk += KC * LS) {
-    const float x1 = th1[k * NS];
-    float a1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < LQ; ++i) {
-      if (j + 4 * i < KC) {
-        float pv[4 * LQ];
-#pragma unroll
-        for (int q = 0; q < LQ; ++q) {
-          const float4 v = *reinterpret_cast<const float4*>(pk + 4 * i * LS + 4 * q);
-          pv[4 * q] = v.x;
-          pv[4 * q + 1] = v.y;
-          pv[4 * q + 2] = v.z;
-          pv[4 * q + 3] = v.w;
-        }
-        const float c = x1 * x2[i];
-        float tt = 0.f;
-#pragma unroll
-        for (int m = 0; m < KC; ++m) {
-          tt = fmaf(x3[m], pv[m], tt);
-          a3[m] = fmaf(c, pv[m], a3[m]);
-        }
-        a1 = fmaf(x2[i], tt, a1);
-        a2[i] = fmaf(x1, tt, a2[i]);
-      }
-    }
-    a1 += __shfl_xor_sync(kAll, a1, 1);
-    a1 += __shfl_xor_sync(kAll, a1, 2);
-    if (valid && (k & 3) == j) t.A[k * NS + s] = a1;
-    d = fmaf(x1, a1, d);
-  }
-#pragma unroll
-  for (int m = 0; m < KC; ++m) {
-    a3[m] += __shfl_xor_sync(kAll, a3[m], 1);
-    a3[m] += __shfl_xor_sync(kAll, a3[m], 2);
-    if (valid && m < K && (m & 3) == j) t.A[(2 * K + m) * NS + s] = a3[m];
-  }
-#pragma unroll
-  for (int i = 0; i < LQ; ++i)
-    if (valid && j + 4 * i < K) t.A[(K + j + 4 * i) * NS + s] = a2[i];
-  float ll = 0.f;
-  const float wi = t.wvs[s];
-  if (valid && j == 0 && wi != 0.f) {
-    t.scale[s] = wi / (d + tip::kEps);
-    ll = wi * logf(d + tip::kEps);
-  }
-  for (int i = threadIdx.x; i < t.seg[t.R]; i += blockDim.x)
-    if (t.wvs[i] == 0.f) t.scale[i] = 0.f;
-  return ll;
-}
-
-// Write the block's p-stats p * cross into pp, its [K, K, K, R] slot of the
-// partial buffer (every cell), and its sum w log D into *lp.
-template <int KC>
-__device__ inline void flush_part(const tip::Tile& t, float* __restrict__ pp,
-                                  float ll_acc, float* __restrict__ lp) {
-  constexpr int LS = p_row_stride(KC);
-  const int K = t.K, K4 = t.K4, R = t.R, RST = p_rating_stride(K, KC);
-  for (int c = threadIdx.x; c < R * K * K4 * K4; c += blockDim.x) {
-    const int m = c % K4, l = (c / K4) % K4, rk = c / (K4 * K4);
-    const int k = rk % K, r = rk / K;
-    if (l < K && m < K)
-      pp[((size_t)(k * K + l) * K + m) * R + r] =
-          t.p_sm[r * RST + (k * KC + l) * LS + m] * t.cross[c];
-  }
-  tip::block_store(ll_acc, lp);
-}
 
 // RC: R fixed at compile time (0: any R).
 template <int KC, int RC>
@@ -265,12 +93,12 @@ __global__ void __launch_bounds__(tip::kThreads, RC ? 4 : 3) em_sweep_kernel(
   const int K3 = K * K * K, SK = S * K;
   const int tid = threadIdx.x, nt = blockDim.x;
   extern __shared__ float smem[];
-  const tip::Tile t = carve<KC>(smem, K, R, tile);
+  const tip::Tile t = tip::reg::carve<KC>(smem, K, R, tile);
 
   const size_t GK = streams ? 0 : (size_t)G * K;
   const size_t LD = GK + (size_t)K3 * R + 1;
   float* part_b = part + ((size_t)s * gridDim.x + blockIdx.x) * LD;
-  stage_p<KC>(t, p + (size_t)s * K3 * R);
+  tip::reg::stage_p<KC>(t, p + (size_t)s * K3 * R);
   const float* th_s = theta + (size_t)s * G * K;
   float ll_acc = 0.f;
   const int row_begin = blockIdx.x * rows_per_block;
@@ -281,7 +109,7 @@ __global__ void __launch_bounds__(tip::kThreads, RC ? 4 : 3) em_sweep_kernel(
     const int n = min(tile, row_end - row0);
 
     tip::load_rows(t, trip, rat, w, th_s, row0, n, G);
-    ll_acc += estep_rows<KC>(t, n);
+    ll_acc += tip::reg::estep_rows<KC>(t, n);
 
     if (streams) {
       __syncthreads();  // A and scale
@@ -298,7 +126,7 @@ __global__ void __launch_bounds__(tip::kThreads, RC ? 4 : 3) em_sweep_kernel(
     tip::cross_acc(t, n, false);  // the next tile's first barrier covers it
   }
   __syncthreads();  // the cross-stats, whose cells flush_part reads by another mapping
-  flush_part<KC>(t, part_b + GK, ll_acc, part_b + GK + (size_t)K3 * R);
+  tip::reg::flush_part<KC>(t, part_b + GK, ll_acc, part_b + GK + (size_t)K3 * R);
 }
 
 template <int KC, int RC = 0>
@@ -348,7 +176,7 @@ extern "C" int tip_em_sweep(const void* theta, const void* p, const void* trip,
   case KC:                                                                    \
     return launch<KC>(theta, p, trip, rat, w, streams, part, S, B, G, K, R,  \
                       tile, rows_per_block, threads, smem_bytes, st)
-  switch (K >= 1 && K <= 20 ? kc_of(K) : 0) {
+  switch (K >= 1 && K <= 20 ? tip::reg::kc_of(K) : 0) {
     TIP_SWEEP(4);
     TIP_SWEEP(8);
     TIP_SWEEP(10);
@@ -364,7 +192,7 @@ extern "C" int tip_em_sweep(const void* theta, const void* p, const void* trip,
 // occupancy calculator), or minus a CUDA error.
 extern "C" int tip_em_sweep_occupancy(int K, int R, int smem_bytes) {
   if (K == 10 && R == 2) return occupancy<10, 2>(smem_bytes);
-  switch (K >= 1 && K <= 20 ? kc_of(K) : 0) {
+  switch (K >= 1 && K <= 20 ? tip::reg::kc_of(K) : 0) {
     case 4: return occupancy<4>(smem_bytes);
     case 8: return occupancy<8>(smem_bytes);
     case 10: return occupancy<10>(smem_bytes);

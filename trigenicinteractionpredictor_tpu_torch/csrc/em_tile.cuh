@@ -2,11 +2,12 @@
 // (em_bdg.cu) and K9 (em_rsorted.cu).  Each kernel gathers its rows' theta
 // and places the per-row position marginals its own way (K1 and K9 add them
 // into a block-private theta_hat, add_marginals; K5a writes streams; K4
-// writes streams and a gene block's accumulator).  K1 and K5a carve their
-// own buffers and run their own p staging, E-step and flush (em_sweep.cu:
-// one register-resident pass per row, no T/U); they take load_rows,
-// add_marginals, cross_acc and block_store from here.  The rest of this
-// header describes the shared carve and estep() that K4 and K9 run.
+// writes streams and a gene block's accumulator).  K1, K5a and K4 carve
+// their buffers and run their p staging, E-step and flush from
+// em_row_estep.cuh (one register-resident pass per row, no T/U); they take
+// sort_rows (load_rows), keyed_sum, add_marginals, cross_acc and
+// block_store from here.  The rest of this header describes the shared
+// carve and estep() that K9 runs.
 //
 // One block owns one restart s; p[s] and its cross-stats stay in shared
 // memory for the block's whole run of rows.  Per tile of `tile` rows the
@@ -59,8 +60,8 @@
 // - The next tile's rows are not gathered while this one computes: a second
 //   theta buffer (+9.8 KB at K = 10) would leave 2 blocks per SM, not 3.
 // Shared memory (floats, NS = tile rounded up to 4 plus 4 (R - 1) slots;
-// the host plans ops/em_bdr.py tile_smem_bytes, ops/em_bdg.py _smem_bytes
-// and ops/em_rsorted.py mirror it): 2 R K K4^2 + K^2 NS + 3 K4 NS + 3 K NS
+// the host plans ops/em_bdr.py tile_smem_bytes and ops/em_rsorted.py
+// mirror it): 2 R K K4^2 + K^2 NS + 3 K4 NS + 3 K NS
 // + 2 NS + tile floats and 5 tile + 8 ints, where K^2 NS (T/U) is at least
 // 27 tile + 256: once estep() is done with T/U, the same words hold the
 // keys of the tile's 3 tile entries and keyed_sum's per-warp lists until

@@ -48,6 +48,8 @@ _SIGNATURES = {
     # theta, p, trip, rat, w, g1_lid, g1_off, streams, theta_hat, part_th, part_p,
     # S, B, G, K, R, Q1, wb1, tile, piece_rows, threads, smem_bytes, stream
     "tip_em_bdg": [_P] * 11 + [_I] * 11 + [_P],
+    # K, R, smem_bytes -> blocks an SM holds, or minus a CUDA error
+    "tip_em_bdg_occupancy": [_I] * 3,
     # vals, perm, lid, off, out, part, edge,
     # L, Q, wb, SK, K, G, piece, vec, blocks, smem_bytes, stream
     "tip_plan_scatter": [_P] * 7 + [_I] * 10 + [_P],

@@ -270,7 +270,8 @@ def stats_fn_for(name: str, k: int = 0, n_ratings: int = 2, row_chunk: int = 0,
                  wb: int = em_bd.DEFAULT_WB) -> Sweep:
     """The :class:`Sweep` of a route name (``row_chunk``: the plain
     sweep's; ``wb``: the scatter plan's gene block width; the bdg block
-    wb1 follows from K and R)."""
+    wb1 follows from K and R, and the bdg batch records K4's blocks an
+    SM)."""
     sweep = _route_entry(name)
     if name == PLAIN_NAME:
         return dataclasses.replace(
@@ -278,11 +279,12 @@ def stats_fn_for(name: str, k: int = 0, n_ratings: int = 2, row_chunk: int = 0,
     if not sweep.static_rows_only:
         return sweep
     # The plan routes: their stats and their batch take the same block widths.
-    widths = {"wb": wb}
+    widths, plan = {"wb": wb}, {}
     if name == em_bdg.KERNEL_NAME:
         widths["wb1"] = em_bdg.bdg_plan(k, n_ratings)[1]
+        plan["resident"] = em_bdg.bdg_resident(k, n_ratings)
     return dataclasses.replace(sweep, stats=functools.partial(sweep.stats, **widths),
-                               batch=functools.partial(sweep.batch, **widths))
+                               batch=functools.partial(sweep.batch, **widths, **plan))
 
 
 def route_kernels(name: str) -> tuple:

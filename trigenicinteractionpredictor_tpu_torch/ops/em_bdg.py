@@ -38,9 +38,6 @@ KERNEL_NAME = "cuda-em-bdg"
 ESTEP_NAME = "cuda-em-bdg-estep"
 WB1_CHOICES = (512, 256, 128, 64, 32)  # gene-block widths, widest first
 DEFAULT_WB1 = WB1_CHOICES[0]
-_SM_SMEM = 233_472       # shared memory of one H100 SM, bytes
-_BLOCK_RESERVED = 1024   # of it, reserved per resident block
-_MAX_RESIDENT = 3        # blocks per SM: the kernel's __launch_bounds__(256, 3)
 _BLOCKS_PER_SM = 8
 
 
@@ -92,10 +89,13 @@ def device_g1_order(batch: Batch, n_genes: int, wb1: int = DEFAULT_WB1) -> Batch
                           g1_offsets=torch.searchsorted(key, starts, out_int32=True))
 
 
-def fit_batch(ds, dev, wb1: int = DEFAULT_WB1, wb: int = em_bd.DEFAULT_WB):
+def fit_batch(ds, dev, wb1: int = DEFAULT_WB1, wb: int = em_bd.DEFAULT_WB,
+              resident: Optional[int] = None):
     """K4's fit batch: ``ds``'s rows on ``dev`` in g1 order with a
     2-position scatter plan of the reordered rows, built there (the plans
-    :func:`make_g1_plan` and ``make_scatter_plan`` give)."""
+    :func:`make_g1_plan` and ``make_scatter_plan`` give).  Its plan info
+    records ``resident``, K4's blocks an SM at the plan that runs
+    (:func:`bdg_resident`), beside ``wb1``."""
     batch = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
     with span("fit.plan"):
         with span("fit.plan.g1"):
@@ -105,14 +105,15 @@ def fit_batch(ds, dev, wb1: int = DEFAULT_WB1, wb: int = em_bd.DEFAULT_WB):
             slots = batch.triplets[:, 1:].T.reshape(-1)
             perm, lid, offsets = device_scatter_plan(slots, ds.n_genes, wb)
     return (batch._replace(scatter_perm=perm, scatter_lid=lid, scatter_offsets=offsets),
-            {"wb": wb, "wb1": wb1, "g1_blocks": -(-ds.n_genes // wb1),
+            {"wb": wb, "wb1": wb1, "resident": resident, "g1_blocks": -(-ds.n_genes // wb1),
              "plan_rows": int(perm.shape[0])})
 
 
 def _smem_bytes(k: int, n_ratings: int, tile: int, wb1: int) -> int:
-    """K1's tile buffers plus the theta block and its accumulator, [wb1, K]
-    each."""
-    return em_bdr.tile_smem_bytes(k, n_ratings, tile) + 8 * wb1 * k
+    """K1's tile buffers (``csrc/em_row_estep.cuh`` carve, which K4 shares:
+    ``em_bdr.sweep_smem_bytes``) plus the theta block and its accumulator,
+    [wb1, K] each, at the carve's end."""
+    return em_bdr.sweep_smem_bytes(k, n_ratings, tile) + 8 * wb1 * k
 
 
 def _tile(k: int, n_ratings: int, wb1: int) -> Optional[int]:
@@ -123,18 +124,22 @@ def _tile(k: int, n_ratings: int, wb1: int) -> Optional[int]:
     return None
 
 
-def _resident(smem: int) -> int:
-    """Blocks of the kernel one SM holds at ``smem`` bytes each."""
-    return min(_MAX_RESIDENT, _SM_SMEM // (smem + _BLOCK_RESERVED))
+def _resident(k: int, n_ratings: int, smem: int) -> int:
+    """Blocks of K4's instance for (K, R) one SM holds at ``smem`` bytes
+    each: its launch bound, which is K1's (``em_bdr.sweep_resident``: 4 at
+    K = 10, R = 2, else 3), or what the SM's shared memory holds, the
+    fewer."""
+    return em_bdr.sweep_resident(k, n_ratings, smem)
 
 
 def bdg_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
     """(row tile, wb1) of the kernel at this (K, R): the largest tile that
-    fits, then the widest gene block that costs no resident block per SM
-    against the tile buffers alone (else the widest that fits); None
-    outside K1's range.  Measured on the H100 at K = 10, R = 2 (PERF.md):
-    a block width that keeps three blocks per SM (then 128) ran 5-22%
-    faster than 512; with the register-tiled algebra's buffers it is 64."""
+    fits, then the widest gene block at which an SM holds as many blocks as
+    the tile buffers alone give under the instance's launch bound (else the
+    widest that fits); None outside K1's range.  A pure function of (K, R)
+    and the card.  At K = 10, R = 2 that is four blocks an SM at wb1 = 64;
+    the H100 A/B at the G = 100,000 cell's rows (PERF.md, section 6) ran
+    it faster than three blocks an SM at wb1 = 128 or 256."""
     if em_bdr.sweep_plan(k, n_ratings) is None:
         return None
     for tile in em_bdr.TILES:
@@ -144,10 +149,17 @@ def bdg_plan(k: int, n_ratings: int) -> Optional[Tuple[int, int]]:
         fits = [w for w in WB1_CHOICES
                 if _smem_bytes(k, n_ratings, tile, w) <= em_bdr.SMEM_LIMIT]
         keep = [w for w in fits
-                if _resident(_smem_bytes(k, n_ratings, tile, w)) >= _resident(base)]
+                if _resident(k, n_ratings, _smem_bytes(k, n_ratings, tile, w))
+                >= _resident(k, n_ratings, base)]
         if keep or fits:
             return tile, (keep or fits)[0]
     return None
+
+
+def bdg_resident(k: int, n_ratings: int) -> int:
+    """K4's blocks an SM at :func:`bdg_plan`'s plan for (K, R)."""
+    tile, wb1 = bdg_plan(k, n_ratings)
+    return _resident(k, n_ratings, _smem_bytes(k, n_ratings, tile, wb1))
 
 
 def bdg_pieces(n_rows: int, n_samples: int, tile: int, n_sm: int) -> Tuple[int, int]:

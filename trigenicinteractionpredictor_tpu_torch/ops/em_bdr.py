@@ -54,8 +54,8 @@ THETA_PART_BYTES = 256 << 20
 
 
 def tile_smem_bytes(k: int, n_ratings: int, tile: int) -> int:
-    """Shared memory of K4's and K9's tile buffers (``csrc/em_tile.cuh``
-    carve; K1 sizes its own, :func:`sweep_smem_bytes`): p[s]
+    """Shared memory of K9's tile buffers (``csrc/em_tile.cuh`` carve; K1,
+    K5a and K4 share their own, :func:`sweep_smem_bytes`): p[s]
     and its cross-stats with l and m padded to K4 = K rounded up to 4, then
     per-slot vectors over NS = tile rounded up to 4 plus 4 (R - 1) slots
     (each rating's rows start a quad; T/U at least 27 tile + 256 words,
@@ -76,7 +76,8 @@ def sweep_kc(k: int) -> int:
 
 
 def sweep_smem_bytes(k: int, n_ratings: int, tile: int) -> int:
-    """Shared memory of K1's tile buffers (``csrc/em_sweep.cu`` carve):
+    """Shared memory of K1's tile buffers (``csrc/em_row_estep.cuh`` carve,
+    which K5a and K4 share):
     p[s] staged for the E-step as [R][K][KC][LS] (KC = :func:`sweep_kc`;
     LS = KC rounded up to a whole, odd number of float4s; a rating's slice
     rounded up to 16 words mod 32), its cross-stats [R][K][K4][K4], the
