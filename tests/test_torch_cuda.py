@@ -639,6 +639,62 @@ def test_k4_row_pass_on_short_tiles_matches_plain(dev, k, r):
         np.testing.assert_allclose(got[3].cpu(), want[3], rtol=1e-5)
 
 
+def _k4_crossing_rows(case, dev):
+    """(K, R, S, G, batch in g1 order) of a named case for K4's tiles
+    that run on past a gene block's end (gene blocks of wb1 = 64)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    k, r, s = (6, 3, 4) if case == "k6_r3" else (10, 2, 10)
+    # The cell's ~67 rows a gene block at a quarter of its rows; G far
+    # above B (~4 rows a block: tiles cut by a second block's end); a hub
+    # gene block over ~25 pieces of 320 rows; rows only in every third
+    # gene block; B no multiple of the tile; K = 6, R = 3 at ~20 rows a block.
+    g, n = {"cell_density": (25_000, 26_214), "g_far_above_b": (100_000, 6_000),
+            "hub_over_pieces": (40_000, 30_000), "empty_blocks": (60_000, 20_000),
+            "b_not_tile_multiple": (12_000, 10_007), "k6_r3": (20_000, 6_251)}[case]
+    trip = rng.integers(0, g, size=(n, 3)).astype(np.int32)
+    if case == "hub_over_pieces":
+        trip[:8_000, 0] = 64 * 300 + rng.integers(0, 64, 8_000)
+    if case == "empty_blocks":
+        trip[:, 0] = 64 * (3 * rng.integers(0, g // 192, n)) + rng.integers(0, 64, n)
+    rat = rng.integers(0, r, size=n).astype(np.int32)
+    w = np.where(rng.random(n) < 0.05, 0.0, 1.0).astype(np.float32)
+    plan = em_bdg.make_g1_plan(trip, g, wb1=64)
+    return k, r, s, g, make_batch(*em_bdg.apply_g1_order(plan, trip, rat, w), dev, g1=plan)
+
+
+@pytest.mark.parametrize("case", ["cell_density", "g_far_above_b", "hub_over_pieces",
+                                  "empty_blocks", "b_not_tile_multiple", "k6_r3"])
+def test_k4_tiles_across_gene_blocks_match_plain(dev, case):
+    """K4's tiles hold rows of up to two gene blocks, cut only at a piece's
+    end or at the second block's end: against its plain version in float64
+    at test_bdg_kernel_matches_plain's tolerances, and the same bits twice,
+    on rows where tiles cross gene blocks' ends (and, where blocks hold
+    fewer rows than a tile, are cut by a second block's end), a hub gene
+    block over many pieces (heads, tails and the fixup), empty gene
+    blocks, a B that is no multiple of the tile, and K = 6, R = 3."""
+    k, r, s, g, tb = _k4_crossing_rows(case, dev)
+    st = init_state(g, k, r, samples=s, seed=5, device=dev)
+    tile = em_bdg.bdg_plan(k, r)[0]
+    n = tb.triplets.shape[0]
+    census = em_bdg.bdg_tile_census(tb.g1_offsets.cpu().numpy(), n,
+                                    em_bdg.bdg_pieces(n, s, tile, em_bdr.sm_count(dev))[0], tile)
+    assert census.crossing > census.tiles // 2
+    if case == "g_far_above_b":
+        assert census.cut > census.tiles // 2
+    got = em_bdg.bdg_estep(st.theta, st.p, tb, 64)
+    again = em_bdg.bdg_estep(st.theta, st.p, tb, 64)
+    want = em_bdg.bdg_estep_reference(
+        st.theta.double(), st.p.double(), tb._replace(weights=tb.weights.double()), 64)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    want = [x.float().cpu() for x in want]
+    np.testing.assert_allclose(got[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[1].cpu(), want[1], rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(got[2].cpu(), want[2], rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(got[3].cpu(), want[3], rtol=1e-5)
+
+
 @pytest.mark.parametrize("k,r", [(1, 1), (4, 2), (7, 3), (10, 2), (10, 3), (13, 2), (16, 1),
                                  (17, 3), (20, 2), (20, 3)])
 def test_k4_plan_counts_the_blocks_an_sm_holds(dev, k, r):

@@ -455,6 +455,37 @@ def test_bdg_plan_covers_k1_range():
     assert em_bdg.bdg_plan(21, 2) is None
 
 
+def test_bdg_plan_keeps_four_blocks_an_sm_and_every_tile():
+    """K4 at K = 10, R = 2 holds four blocks an SM at no more than 57,344
+    bytes a block (233,472 // 4 less the 1,024 each block reserves); and
+    against the carve of a theta block and one accumulator, [wb1, K] each
+    (the kernel whose tiles stopped at every gene block's end), no (K, R)
+    the plan admits holds fewer blocks an SM or takes a smaller tile."""
+    tile, wb1 = em_bdg.bdg_plan(10, 2)
+    assert em_bdg.bdg_resident(10, 2) == 4
+    assert em_bdg._smem_bytes(10, 2, tile, wb1) <= em_bdr.SM_SMEM // 4 - em_bdr.BLOCK_RESERVED
+    assert em_bdr.SM_SMEM // 4 - em_bdr.BLOCK_RESERVED == 57_344
+
+    def block_and_accumulator(k, r):
+        """(tile, blocks an SM) of the plan's rule on that carve."""
+        for t in em_bdr.TILES:
+            base = em_bdr.sweep_smem_bytes(k, r, t)
+            fits = [base + 8 * w * k for w in em_bdg.WB1_CHOICES
+                    if base + 8 * w * k <= em_bdr.SMEM_LIMIT]
+            if base <= em_bdr.SMEM_LIMIT and fits:
+                held = [em_bdr.sweep_resident(k, r, smem) for smem in fits]
+                keep = [h for h in held if h >= em_bdr.sweep_resident(k, r, base)]
+                return t, (keep or held)[0]
+        return None
+
+    for k in range(1, em_bdr.MAX_K + 1):
+        for r in range(1, 6):
+            old, plan = block_and_accumulator(k, r), em_bdg.bdg_plan(k, r)
+            assert (old is None) == (plan is None), (k, r)
+            if plan is not None:
+                assert plan[0] >= old[0] and em_bdg.bdg_resident(k, r) >= old[1], (k, r)
+
+
 def test_unknown_backend_raises():
     with pytest.raises(ValueError, match="backend"):
         dispatch.resolve_stats_fn("cuda", 3, 1000, 10, 10, backend="triton")

@@ -155,3 +155,85 @@ def test_states_from_tensors_are_fresh_float32_copies_with_the_same_bits():
     assert torch.equal(st.p, p)
     p.zero_()
     assert st.p.abs().sum() > 0
+
+
+def _tiles_by_brute_force(offsets, n_rows, piece_rows, tile):
+    """K4's tiles a restart, each the longest run of rows from its first
+    that stays in its piece, holds at most ``tile`` rows and rows of at
+    most two gene blocks: (tiles, those of two blocks, those cut short by
+    the second block's end)."""
+    block = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    tiles = crossing = cut = 0
+    for r0 in range(0, n_rows, piece_rows):
+        r1 = min(n_rows, r0 + piece_rows)
+        row0 = r0
+        while row0 < r1:
+            room = min(tile, r1 - row0)
+            n = room
+            while len(set(block[row0:row0 + n].tolist())) > 2:
+                n -= 1
+            tiles += 1
+            crossing += len(set(block[row0:row0 + n].tolist())) == 2
+            cut += n < room
+            row0 += n
+    return tiles, crossing, cut
+
+
+@pytest.mark.parametrize("n,g,wb1,piece_rows,tile,hub", [
+    (3000, 100_000, 64, 1024, 64, False),  # ~2 rows a gene block
+    (5000, 6000, 64, 320, 64, False),      # ~53 rows a gene block
+    (5000, 6000, 32, 192, 32, True),       # a hub gene block over many pieces
+    (4001, 300, 256, 128, 16, False),      # two gene blocks of ~2,700 rows
+    (700, 40_000, 512, 64, 8, False),      # many empty gene blocks
+])
+def test_the_tile_census_counts_the_kernels_tiles(n, g, wb1, piece_rows, tile, hub):
+    rng = np.random.default_rng(n + g)
+    trip = rng.integers(0, g, size=(n, 3)).astype(np.int32)
+    if hub:
+        trip[rng.random(n) < 0.4, 0] = g // 2
+    plan = em_bdg.make_g1_plan(trip, g, wb1=wb1)
+    got = em_bdg.bdg_tile_census(plan.offsets, n, piece_rows, tile)
+    assert tuple(got) == _tiles_by_brute_force(plan.offsets, n, piece_rows, tile)
+
+
+@pytest.mark.parametrize("seed", [123, 2**31 + 7])
+def test_the_cells_tiles_run_on_past_gene_block_ends(seed):
+    """At the cell's rows (104,858, G = 100,000: ~67 rows a gene block of
+    64 genes) on an H100's 132 SMs, a restart runs ~1,670 tiles, where
+    tiles cut at every gene block's end would number ~2,570."""
+    with open(CONFIG) as fh:
+        c = json.load(fh)
+    rows = synth.train_rows(synth.planted_rows(c["n_triplets"], c["n_genes"], c["k"],
+                                               c["n_ratings"], 0.5, 0.5, seed),
+                            c["test_fraction"], seed)
+    n = rows.triplets.shape[0]
+    tile, wb1 = em_bdg.bdg_plan(c["k"], c["n_ratings"])
+    plan = em_bdg.make_g1_plan(rows.triplets, c["n_genes"], wb1=wb1)
+    piece_rows, pieces = em_bdg.bdg_pieces(n, 10, tile, 132)
+    assert (tile, wb1, piece_rows, pieces) == (64, 64, 1024, 103)
+    got = em_bdg.bdg_tile_census(plan.offsets, n, piece_rows, tile)
+    runs = [max(0, min(e, r0 + piece_rows) - max(a, r0)) for r0 in range(0, n, piece_rows)
+            for a, e in zip(plan.offsets[:-1], plan.offsets[1:])]
+    cut_at_each_end = sum(-(-r // tile) for r in runs)
+    assert 1_650 <= got.tiles <= 1_700 and 2_540 <= cut_at_each_end <= 2_610
+    assert got.crossing > 1_400 and got.cut < 60
+
+
+def test_the_tile_ordered_cross_sums_in_its_order():
+    """``tile_ordered_cross`` gives the bits of a float32 sum in its order
+    (each tile's rows in row order, then the tiles), and the matmul's value
+    in float64."""
+    rng = np.random.default_rng(5)
+    v, x = rng.random((2, 150, 6)), rng.random((2, 150, 4))
+    got = em_bdg.tile_ordered_cross(torch.as_tensor(v, dtype=torch.float32),
+                                    torch.as_tensor(x, dtype=torch.float32), max_elems=100)
+    prod = v.astype(np.float32)[..., :, None] * x.astype(np.float32)[..., None, :]
+    want = np.zeros((2, 6, 4), np.float32)
+    for t0 in range(0, 150, 64):
+        part = prod[:, t0].copy()
+        for i in range(t0 + 1, min(150, t0 + 64)):
+            part += prod[:, i]
+        want += part
+    assert np.array_equal(got.numpy(), want)
+    exact = em_bdg.tile_ordered_cross(torch.as_tensor(v), torch.as_tensor(x))
+    np.testing.assert_allclose(exact.numpy(), np.swapaxes(v, 1, 2) @ x, rtol=1e-13)

@@ -25,7 +25,10 @@ kernel table (N = 131,072 rows, R = 2):
   ``estep_kernel`` and ``cross_kernel``, and of everything else the call
   launches, per call);
 - K7 ``em_hybrid.hybrid_stats`` at K = 25 (G = 6000, S = 2);
-- K4 ``em_bdg.bdg_estep`` on g1-ordered rows at G = 100,000, S = 10;
+- K4 ``em_bdg.bdg_estep`` on g1-ordered rows at G = 100,000, S = 10,
+  with its tiles a restart beside it (``K4 G=100000 tiles``: tiles, those
+  that cross a gene block's end, those cut by a second block's end, by
+  ``em_bdg.bdg_tile_census``, in a tree that has it);
 - K5a ``em_bd.em_streams`` at G = 500,000, S = 10;
 - K9 ``em_rsorted.rsorted_em_ensemble_stats`` at K = 10 on plan tiles of
   512 rows (G = 1000, S = 10);
@@ -294,6 +297,10 @@ def measure(tree: str, only=()) -> dict:
             tb = make_batch(*em_bdg.apply_g1_order(g1, ds.triplets, ds.ratings, ds.weights),
                             dev, g1=g1)
             fn = lambda: em_bdg.bdg_estep(st.theta, st.p, tb, wb1)  # noqa: E731
+            if hasattr(em_bdg, "bdg_tile_census"):  # tiles a restart, crossing, cut
+                tile = em_bdg.bdg_plan(10, R)[0]
+                rows = em_bdg.bdg_pieces(N, 10, tile, em_bdr.sm_count(dev))[0]
+                out[f"{name} tiles"] = list(em_bdg.bdg_tile_census(g1.offsets, N, rows, tile))
         else:
             tb = make_batch(ds.triplets, ds.ratings, ds.weights, dev)
             fn = lambda: em_bd.em_streams(st.theta, st.p, tb)  # noqa: E731
@@ -357,7 +364,8 @@ def main(argv=None) -> int:
         ms = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append((label, ms))
         print(json.dumps({"tree": label, "ms": ms}), flush=True)
-    summary = {name: [ms.get(name) for _, ms in runs] for name in runs[0][1]}
+    names = dict.fromkeys(name for _, ms in runs for name in ms)
+    summary = {name: [ms.get(name) for _, ms in runs] for name in names}
     same = {name[len("digest "):]: len(set(v)) == 1
             for name, v in summary.items() if name.startswith("digest ")}
     print(json.dumps({"order": [label for label, _ in runs], "ms": summary,

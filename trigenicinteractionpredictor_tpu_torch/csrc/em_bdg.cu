@@ -1,18 +1,18 @@
-// K4: the whole-ensemble E-step of the bdg route, with position 1's theta
-// gather and theta_hat accumulation local to a gene block.  Hand-written
-// for Hopper (sm_90a).
+// K4: the whole-ensemble E-step of the bdg route, with position 1's
+// theta_hat accumulation local to a gene block.  Hand-written for Hopper
+// (sm_90a).
 //
 // Replaces: trigenicinteractionpredictor_tpu/ops/pallas_em_bdg.py,
 //   _bdg_estep (_em_tile_kernel_bdg).  Same contract: rows come in the
 //   g1 plan's order (stably sorted by position-1 gene block,
-//   ops/em_bdg.py make_g1_plan); position 1's theta rows are read from,
-//   and its theta_hat share accumulated in, one gene block at a time; the
-//   position-2/3 marginals go out as streams [2, B, S*K] for plan_scatter.cu
-//   with the 2-position plan; p_hat = p * cross and loglik [S] as K1.  The
-//   TPU kernel's local one-hot matmuls, block-diagonal operands and S^2
-//   cross matmul are not carried over, nor its tile padding of every block
-//   run: the port's g1 plan has no pad rows, so a block of rows here may
-//   start and end anywhere inside a gene block's run.
+//   ops/em_bdg.py make_g1_plan); position 1's theta_hat share is summed
+//   in shared memory one gene block at a time; the position-2/3 marginals
+//   go out as streams [2, B, S*K] for plan_scatter.cu with the 2-position
+//   plan; p_hat = p * cross and loglik [S] as K1.  The TPU kernel's local
+//   one-hot matmuls, block-diagonal operands and S^2 cross matmul are not
+//   carried over, nor its tile padding of every block run: the port's g1
+//   plan has no pad rows, so a tile may start and end anywhere inside a
+//   gene block's run.
 //
 // Supported shapes: K1's range, as ops/em_bdg.py bdg_plan admits (it
 // narrows the gene block wb1 and the row tile until the buffers below fit
@@ -21,44 +21,50 @@
 // What bounds it on the H100: the E-step algebra is K1's
 // (csrc/em_row_estep.cuh: K1's carve of the tile buffers, with no T/U,
 // and its register-resident pass per row over each tile's rows sorted by
-// rating inside the block; the gene block's two [wb1, K] buffers at the
-// carve's end).  At G = 100,000 a gene block holds a few dozen rows, so
-// most gene blocks a piece visits cost a tile cut short by the block's
-// end, and every tile pays the row load, the sort, the gather, the keys
-// and the cross-stats with their barriers: the count of tiles paces the
-// kernel more than its arithmetic.
+// rating inside the block; two [wb1, K] accumulator slots at the carve's
+// end).  Every tile pays the row load, the sort, the gather, the keys and
+// the cross-stats with their barriers, so the count of tiles paces the
+// kernel more than its arithmetic.  A tile therefore runs on past a gene
+// block's end: at G = 100,000 a gene block holds a few dozen rows, and a
+// tile that stopped at each block's end cost a full tile and a short one
+// per block (2,554 tiles a restart at the cell's rows, 1,594 of them
+// short) where tiles of rows of up to two blocks take ~1,670
+// (ops/em_bdg.py bdg_tile_census counts them).  Position 1's theta rows
+// are gathered from global memory as positions 2 and 3 are (one gene
+// block's rows lie in wb1 K floats), so the carve holds no theta block.
 // The plan (ops/em_bdg.py bdg_plan) spends the shared memory the carve
-// leaves on blocks an SM or on wider gene blocks (fewer, fuller tiles), as
-// the instance's launch bound allows.  Against K5a (em_sweep.cu's streams
-// form) it reads position 1's theta as one contiguous [wb1, K] block per
-// gene block visited (instead of a scattered row per row) and keeps
+// leaves on blocks an SM or on wider gene blocks, as the instance's
+// launch bound allows.  Against K5a (em_sweep.cu's streams form) it keeps
 // position 1 out of the streams and out of the scatter (2 of 3 positions'
-// bytes), at the cost of summing into the block accumulator and one flush
-// of it per gene block visited.
+// bytes), at the cost of summing into the block accumulators and one
+// flush of them per gene block visited.
 //
 // Design, with every sum in an order fixed by the rows and the host plan
 // (no atomics, the same bits from run to run): grid (pieces of piece_rows
-// consecutive rows, S).  A block walks the gene blocks its piece overlaps
-// (g1 CSR offsets); for each it stages theta[s, block rows] and a zeroed
-// accumulator [wb1, K] in shared memory, runs the tile algebra over the
-// rows of that gene block (in a tile cut short by the block's end, the
-// warps that own no row skip the E-step's pass) and adds the tile's
-// position-1 marginals into the accumulator, each gene's rows summed in row
-// order by one thread (tip::keyed_sum; one writer per element).  Then it
-// flushes the accumulator: a gene block whose rows lie inside the piece is
-// stored into theta_hat; one that runs in from the piece before leaves its
-// share in part_th as the piece's head, one that begins here and runs on
-// as its tail.  fixup_kernel, as plan_scatter.cu's,
-// gives each run-on gene block to the piece it began in, which adds its
-// tail and the heads of the following pieces in piece order and stores the
-// sum once, so a hub gene block split over many pieces is summed by a
-// fixed order too.  p * cross and w log D go into the block's slot of the
-// partial buffer part_p (tip::reg::flush_part), which csrc/block_sum.cu
-// sums in block order.  Splitting by restart keeps the block at [wb1, K]
-// per buffer: [wb1, S*K] would be 205 KB at wb1 = 512, S = 10, K = 10.
-// Instances as K1's: KC = kc_of(K) at three blocks an SM, and K = 10,
-// R = 2 with R and the 64-row tile fixed at four (64 registers, no spill;
-// with the tile a runtime value it spilled 24 bytes).
+// consecutive rows, S).  A block walks its piece in tiles of up to `tile`
+// rows, each cut only at the piece's end or at the end of the second gene
+// block it touches (g1 CSR offsets), so a tile holds rows of gene block qa
+// and of the next block that holds rows, qb.  The gene blocks of the piece
+// take the two accumulator slots in turn (qa slot x, qb slot x ^ 1); each
+// row is keyed by (slot, local id), and the tile's position-1 marginals are
+// added into the slots, each gene's rows summed in row order by one thread
+// (tip::keyed_sum; one writer per element).  Once the tile that holds a
+// gene block's last row of the piece is done, its slot is flushed (after
+// the next tile's first barrier, so no barrier is added) and zeroed for
+// the next block: a gene block whose rows lie inside the piece is stored
+// into theta_hat; one that runs in from the piece before leaves its share
+// in part_th as the piece's head, one that begins here and runs on as its
+// tail.  fixup_kernel, as plan_scatter.cu's, gives each run-on gene block
+// to the piece it began in, which adds its tail and the heads of the
+// following pieces in piece order and stores the sum once, so a hub gene
+// block split over many pieces is summed by a fixed order too.  p * cross
+// and w log D go into the block's slot of the partial buffer part_p
+// (tip::reg::flush_part), which csrc/block_sum.cu sums in block order.
+// Splitting by restart keeps the slots at [wb1, K]: [wb1, S*K] would be
+// 205 KB at wb1 = 512, S = 10, K = 10.  Instances as K1's: KC = kc_of(K)
+// at three blocks an SM, and K = 10, R = 2 with R and the 64-row tile
+// fixed at four (64 registers, no spill; with the tile a runtime value it
+// spilled 24 bytes).
 
 #include "em_row_estep.cuh"
 
@@ -72,6 +78,35 @@ __device__ inline int block_of(const int* __restrict__ off, int Q, int i) {
     if (off[mid] <= i) lo = mid; else hi = mid - 1;
   }
   return lo;
+}
+
+// Gene block q's share of theta_hat, complete in the accumulator slot acc
+// [wb1 K]: inside the piece into theta_hat, a head or a tail into part_th;
+// then the slot is zeroed for the next block.
+__device__ inline void flush_block(const int* __restrict__ g1_off, int q,
+                                   float* __restrict__ acc,
+                                   float* __restrict__ theta_hat,
+                                   float* __restrict__ part_th, int B, int G, int K,
+                                   int wb1, int piece_rows) {
+  const int W = wb1 * K;
+  const int p0 = blockIdx.x * piece_rows, p1 = min(B, p0 + piece_rows);
+  const bool head = g1_off[q] < p0;
+  const bool tail = !head && g1_off[q + 1] > p1;
+  const size_t at = (size_t)q * W;
+  if (head || tail) {
+    float* dst = part_th + ((size_t)(2 * blockIdx.x + (tail ? 1 : 0)) * gridDim.y +
+                            blockIdx.y) * W;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      dst[i] = acc[i];
+      acc[i] = 0.f;
+    }
+  } else {
+    float* out = theta_hat + (size_t)blockIdx.y * G * K + at;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      if (at + i < (size_t)G * K) out[i] = acc[i];
+      acc[i] = 0.f;
+    }
+  }
 }
 
 // RC: R fixed at compile time, and the tile at kPassRows (0: any R, any tile).
@@ -99,108 +134,111 @@ __global__ void __launch_bounds__(tip::kThreads, RC ? 4 : 3) em_bdg_kernel(
   extern __shared__ float smem[];
   const tip::Tile t = tip::reg::carve<KC>(smem, K, R, tile);
   const int RS = t.RS, W = wb1 * K;
-  float* th_blk = t.rest;         // [wb1][K] theta rows of the gene block
-  float* acc = th_blk + wb1 * K;  // [wb1][K] its theta_hat share
+  float* acc = t.rest;  // [2][wb1][K]: the theta_hat shares of two gene blocks
   int* key = t.link;
 
   tip::reg::stage_p<KC>(t, p + (size_t)s * K3 * R);
+  for (int i = tid; i < 2 * W; i += nt) acc[i] = 0.f;
   const float* th_s = theta + (size_t)s * G * K;
   float ll_acc = 0.f;
   const int r0 = blockIdx.x * piece_rows;
   const int r1 = min(B, r0 + piece_rows);
-  const size_t GK = (size_t)G * K;
+  // Uniform across the block: the gene block of the next tile's first row
+  // and its slot, and the gene block each slot holds complete (-1: none).
+  int qa = block_of(g1_off, Q1, r0), x = 0, f0 = -1, f1 = -1;
   __syncthreads();
 
-  for (int q = block_of(g1_off, Q1, r0); q < Q1 && g1_off[q] < r1; ++q) {
-    const int a = max(r0, g1_off[q]), e = min(r1, g1_off[q + 1]);
-    if (a >= e) continue;  // uniform across the block
-    const size_t base = (size_t)q * wb1 * K;
-    for (int i = tid; i < wb1 * K; i += nt) {
-      th_blk[i] = base + i < GK ? th_s[base + i] : 0.f;
-      acc[i] = 0.f;
+  for (int row0 = r0; row0 < r1;) {
+    if (qa + 1 < Q1 && g1_off[qa + 1] <= row0) {  // qa ended: the next block
+      x ^= 1;
+      do ++qa; while (qa + 1 < Q1 && g1_off[qa + 1] <= row0);
+    }
+    // Rows [row0, e): qa's up to row0 + na, then qb's.
+    const int ea = g1_off[qa + 1];
+    int e = min(row0 + tile, r1), qb = qa;
+    if (e > ea && qa + 1 < Q1) {
+      do ++qb; while (qb + 1 < Q1 && g1_off[qb + 1] <= ea);
+      e = min(e, g1_off[qb + 1]);
+    }
+    e = max(e, row0 + 1);  // progress on any plan
+    const int n = e - row0, na = min(ea, e) - row0;
+    // Row metadata; position 1 keeps its gene id from the plan.  Out-of-range
+    // ids make a row inert, as in em_sweep.cu.
+    for (int i = tid; i < tile; i += nt) {
+      const int b = row0 + i;
+      int g1 = 0, g2 = 0, g3 = 0, r = 0;
+      bool valid = i < n;
+      if (valid) {
+        const int l1 = g1_lid[b];
+        g1 = (i < na ? qa : qb) * wb1 + l1;
+        g2 = trip[3 * b + 1];
+        g3 = trip[3 * b + 2];
+        r = rat[b];
+        valid = (unsigned)l1 < (unsigned)wb1 && (unsigned)g1 < (unsigned)G &&
+                (unsigned)g2 < (unsigned)G && (unsigned)g3 < (unsigned)G &&
+                (unsigned)r < (unsigned)R;
+      }
+      t.gene[i] = valid ? g1 : 0;
+      t.gene[RS + i] = valid ? g2 : 0;
+      t.gene[2 * RS + i] = valid ? g3 : 0;
+      t.rr[i] = valid ? r : 0;
+      t.wv[i] = valid ? w[b] : 0.f;
     }
     __syncthreads();
-
-    for (int row0 = a; row0 < e; row0 += tile) {
-      const int n = min(tile, e - row0);
-      // Row metadata; position 1 keeps its local id.  Out-of-range ids
-      // make a row inert, as in em_sweep.cu.
-      for (int i = tid; i < tile; i += nt) {
-        const int b = row0 + i;
-        int l1 = 0, g2 = 0, g3 = 0, r = 0;
-        bool valid = i < n;
-        if (valid) {
-          l1 = g1_lid[b];
-          g2 = trip[3 * b + 1];
-          g3 = trip[3 * b + 2];
-          r = rat[b];
-          valid = (unsigned)l1 < (unsigned)wb1 &&
-                  (size_t)(q * wb1 + l1) < (size_t)G &&
-                  (unsigned)g2 < (unsigned)G && (unsigned)g3 < (unsigned)G &&
-                  (unsigned)r < (unsigned)R;
-        }
-        t.gene[i] = valid ? l1 : 0;
-        t.gene[RS + i] = valid ? g2 : 0;
-        t.gene[2 * RS + i] = valid ? g3 : 0;
-        t.rr[i] = valid ? r : 0;
-        t.wv[i] = valid ? w[b] : 0.f;
-      }
-      __syncthreads();
-      tip::sort_rows(t, n);
-
-      tip::Walk3 it(tid, nt, K);
-      for (int i = tid; i < 3 * K * n; i += nt, it.next()) {
-        const int g = t.gene[it.pos * RS + it.row];
-        tip::th_at(t, it.pos, it.k, t.slot[it.row]) =
-            it.pos == 0 ? th_blk[g * K + it.k] : th_s[(size_t)g * K + it.k];
-      }
-      __syncthreads();
-
-      ll_acc += tip::reg::estep_rows<KC, true>(t, n);
-
-      // Position 1: each gene's rows summed in row order by one thread,
-      // into the accumulator.  The barrier after the keys covers A and
-      // scale.
-      for (int row = tid; row < n; row += nt)
-        key[row] = t.wv[row] != 0.f ? t.gene[row] : -1;
-      __syncthreads();
-      tip::keyed_sum(
-          t, n, K, [&](int row, int k) { return tip::marginal(t, 0, k, row); },
-          [&](int l1, int k) { return acc + l1 * K + k; });
-      // streams[pos - 1, b, s*K + k] for positions 2 and 3.
-      for (int i = tid; i < 2 * K * n; i += nt) {
-        const int k = i % K, rest = i / K;
-        const int row = rest % n, pos = 1 + rest / n;
-        streams[((size_t)(pos - 1) * B + row0 + row) * SK + s * K + k] =
-            tip::marginal(t, pos, k, row);
-      }
-      // No barrier: warps with no cross item go on to the next tile's row
-      // metadata, which nothing above reads, and whose barrier comes
-      // before anything they read is overwritten.
-      tip::cross_acc(t, n, false);
-    }
-    __syncthreads();  // the accumulator is complete
-
-    // Flush: inside the piece into theta_hat, a head or a tail into part_th.
-    // Its addresses are computed here from q and the block's indices, so
-    // none is held in a register across the tile loop.
+    // The last tile's keyed sums are done: flush its complete blocks.  The
+    // keys by (slot, local id); nothing reads them before this tile's
+    // key barrier.
+    if (f0 >= 0) flush_block(g1_off, f0, acc, theta_hat, part_th, B, G, K, wb1, piece_rows);
+    if (f1 >= 0) flush_block(g1_off, f1, acc + W, theta_hat, part_th, B, G, K, wb1, piece_rows);
     {
-      const int p0 = blockIdx.x * piece_rows, p1 = min(B, p0 + piece_rows);
-      const bool head = g1_off[q] < p0;
-      const bool tail = !head && g1_off[q + 1] > p1;
-      const size_t at = (size_t)q * wb1 * K;
-      if (head || tail) {
-        float* dst = part_th + ((size_t)(2 * blockIdx.x + (tail ? 1 : 0)) * gridDim.y +
-                                blockIdx.y) * W;
-        for (int i = threadIdx.x; i < W; i += blockDim.x) dst[i] = acc[i];
-      } else {
-        float* out = theta_hat + (size_t)blockIdx.y * G * K + at;
-        for (int i = threadIdx.x; i < W; i += blockDim.x)
-          if (at + i < (size_t)G * K) out[i] = acc[i];
+      const int ka = (x - qa) * wb1, kb = ((x ^ 1) - qb) * wb1;
+      for (int row = tid; row < n; row += nt)
+        key[row] = t.wv[row] != 0.f ? t.gene[row] + (row < na ? ka : kb) : -1;
+    }
+    // This tile completes qa if it reaches qa's end or the piece's, and qb
+    // if it reaches qb's end or the piece's; the next tile starts in qb.
+    {
+      const int fa = e >= ea || e == r1 ? qa : -1;
+      const int fb = qb != qa && (e == g1_off[qb + 1] || e == r1) ? qb : -1;
+      f0 = x ? fb : fa;
+      f1 = x ? fa : fb;
+      if (qb != qa) {
+        qa = qb;
+        x ^= 1;
       }
     }
-    __syncthreads();  // before the next gene block overwrites th_blk, acc
+    tip::sort_rows(t, n);
+
+    tip::Walk3 it(tid, nt, K);
+    for (int i = tid; i < 3 * K * n; i += nt, it.next())
+      tip::th_at(t, it.pos, it.k, t.slot[it.row]) =
+          th_s[(size_t)t.gene[it.pos * RS + it.row] * K + it.k];
+    __syncthreads();
+
+    ll_acc += tip::reg::estep_rows<KC, true>(t, n);
+
+    // Position 1: each gene's rows summed in row order by one thread, into
+    // its block's slot.  The barrier covers A and scale.
+    __syncthreads();
+    tip::keyed_sum(
+        t, n, K, [&](int row, int k) { return tip::marginal(t, 0, k, row); },
+        [&](int slot_lid, int k) { return acc + slot_lid * K + k; });
+    // streams[pos - 1, b, s*K + k] for positions 2 and 3.
+    for (int i = tid; i < 2 * K * n; i += nt) {
+      const int k = i % K, rest = i / K;
+      const int row = rest % n, pos = 1 + rest / n;
+      streams[((size_t)(pos - 1) * B + row0 + row) * SK + s * K + k] =
+          tip::marginal(t, pos, k, row);
+    }
+    // No barrier: warps with no cross item go on to the next tile's row
+    // metadata, which nothing above reads, and whose barrier comes before
+    // anything they read is overwritten.
+    tip::cross_acc(t, n, false);
+    row0 = e;
   }
+  __syncthreads();  // the last tile's keyed sums and cross-stats are done
+  if (f0 >= 0) flush_block(g1_off, f0, acc, theta_hat, part_th, B, G, K, wb1, piece_rows);
+  if (f1 >= 0) flush_block(g1_off, f1, acc + W, theta_hat, part_th, B, G, K, wb1, piece_rows);
   float* pp = part_p + ((size_t)s * gridDim.x + blockIdx.x) * ((size_t)K3 * R + 1);
   tip::reg::flush_part<KC>(t, pp, ll_acc, pp + (size_t)K3 * R);
 }

@@ -14,8 +14,9 @@
 //   barrier orders its writes before their readers.  2 K^3 + 3 K^2
 //   multiply-adds a row, with no padded (l, m) at K = 10.  At tile 64 every
 //   lane of the block owns a row; in K4, a warp whose eight rows all lie
-//   at or past the tile's n (a tile cut short by a gene block's end) runs
-//   no (k, l) pair, warp-uniformly, so the full-mask shuffles stay legal.
+//   at or past the tile's n (a tile cut short by a piece's end or by a
+//   second gene block's end) runs no (k, l) pair, warp-uniformly, so the
+//   full-mask shuffles stay legal.
 // - p[s] is staged for it as [r][k][l][LS]: LS is K rounded up to a whole,
 //   odd number of float4s, so the four lanes' rows of p fall in four
 //   different bank quads, and a rating's slice starts 16 words (mod 32)
@@ -27,7 +28,8 @@
 //   sum's lists (27 tile + 256 words), then theta, A and the per-slot and
 //   per-row vectors as tip::carve lays them; t.rest is the caller's
 //   (ops/em_bdr.py sweep_smem_bytes mirrors it byte for byte, and
-//   ops/em_bdg.py _smem_bytes adds K4's two [wb1, K] blocks at t.rest).
+//   ops/em_bdg.py _smem_bytes adds K4's two [wb1, K] accumulator slots at
+//   t.rest).
 
 #pragma once
 
@@ -111,7 +113,8 @@ __device__ inline void stage_p(const tip::Tile& t, const float* __restrict__ p_s
 // and weight-0 rows), with no barrier: the caller syncs before they are
 // read.  With SKIP, a warp whose eight rows all lie at or past n runs no
 // (k, l) pair (warp-uniform: its shuffles of zeros stay legal) and writes
-// nothing, as before: K4, whose tiles a gene block's end often cuts short.
+// nothing, as before: K4, whose tiles a piece's end or a second gene
+// block's end cuts short.
 // K1 has one short tile a block and leaves it off (its K = 10, R = 2
 // instance would spill at 64 registers).  Returns this thread's share of
 // sum w log D.

@@ -164,16 +164,19 @@ def em_sufficient_stats(theta, p, batch: Batch, row_chunk: int = 0) -> SweepStat
     return SweepStats(theta_hat=theta_hat, p_hat=p_hat, loglik=loglik)
 
 
-def position_marginals(theta, p, batch: Batch):
+def position_marginals(theta, p, batch: Batch, cross_sum=None):
     """The arity-3 sweep without its theta_hat scatter: (the three per-row
     position marginals th_pos * A_pos * w/D, each [..., B, K]; p_hat; L).
     The large-G routes scatter the marginals through their plans."""
-    return rows_marginals(*_gather(theta, batch.triplets), p, batch.ratings, batch.weights)
+    return rows_marginals(*_gather(theta, batch.triplets), p, batch.ratings, batch.weights,
+                          cross_sum)
 
 
-def rows_marginals(th1, th2, th3, p, ratings, weights):
+def rows_marginals(th1, th2, th3, p, ratings, weights, cross_sum=None):
     """:func:`position_marginals` on theta rows already gathered per
-    position (each [..., B, K])."""
+    position (each [..., B, K]).  ``cross_sum(V, X)`` sums the cross-stats
+    V^T X over the rows ([..., B, K^2] and [..., B, K R] to [..., K^2, K R])
+    in place of the matmul."""
     K = th1.shape[-1]
     R = p.shape[-1]
     lead = th1.shape[:-2]
@@ -203,7 +206,8 @@ def rows_marginals(th1, th2, th3, p, ratings, weights):
     V = W * sc                                                   # [..., B, K^2]
     onehot = torch.nn.functional.one_hot(r.long(), R).to(th1.dtype)  # [B, R]
     th3r = (th3.unsqueeze(-1) * onehot.unsqueeze(-2)).reshape(lead + (B, K * R))
-    cross = torch.matmul(V.transpose(-1, -2), th3r)              # [..., K^2, K*R]
+    cross = (torch.matmul(V.transpose(-1, -2), th3r) if cross_sum is None
+             else cross_sum(V, th3r))                            # [..., K^2, K*R]
     p_hat = p * cross.reshape(p.shape)
 
     loglik = (w * torch.log(D + _EPS)).sum(-1)

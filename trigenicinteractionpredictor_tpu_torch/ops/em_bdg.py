@@ -3,11 +3,12 @@
 ``apply_g1_order``, ``_bdg_estep`` and ``bdg_em_ensemble_stats``).
 
 Rows go in the order of a g1 plan (stably sorted by the gene block of
-position 1), so :func:`bdg_estep` (``csrc/em_bdg.cu``) reads position 1's
-theta rows, and sums its theta_hat share, one gene block at a time in
-shared memory.  Positions 2 and 3 leave the E-step as streams [2, B, S*K]
-and reach theta_hat through ``ops/em_bd.py::plan_scatter`` with a
-2-position scatter plan built on the reordered rows.
+position 1), so :func:`bdg_estep` (``csrc/em_bdg.cu``) sums position 1's
+theta_hat share one gene block at a time in shared memory, in tiles of
+rows of up to two gene blocks (:func:`bdg_tile_census` counts them).
+Positions 2 and 3 leave the E-step as streams [2, B, S*K] and reach
+theta_hat through ``ops/em_bd.py::plan_scatter`` with a 2-position
+scatter plan built on the reordered rows.
 
 The port's g1 plan drops the reference's rule that pads every block's run
 of rows to a whole tile (``pallas_em_bdg.py:101-110``; 91% pad rows at
@@ -111,8 +112,8 @@ def fit_batch(ds, dev, wb1: int = DEFAULT_WB1, wb: int = em_bd.DEFAULT_WB,
 
 def _smem_bytes(k: int, n_ratings: int, tile: int, wb1: int) -> int:
     """K1's tile buffers (``csrc/em_row_estep.cuh`` carve, which K4 shares:
-    ``em_bdr.sweep_smem_bytes``) plus the theta block and its accumulator,
-    [wb1, K] each, at the carve's end."""
+    ``em_bdr.sweep_smem_bytes``) plus the two accumulator slots of a tile's
+    gene blocks, [wb1, K] each, at the carve's end."""
     return em_bdr.sweep_smem_bytes(k, n_ratings, tile) + 8 * wb1 * k
 
 
@@ -162,6 +163,45 @@ def bdg_resident(k: int, n_ratings: int) -> int:
     return _resident(k, n_ratings, _smem_bytes(k, n_ratings, tile, wb1))
 
 
+class TileCensus(NamedTuple):
+    """K4's tiles of one restart over a g1 plan."""
+
+    tiles: int     # tiles a restart
+    crossing: int  # of them, tiles that hold rows of two gene blocks
+    cut: int       # of them, tiles cut short by the second block's end
+
+
+def bdg_tile_census(offsets, n_rows: int, piece_rows: int, tile: int) -> TileCensus:
+    """The tiles :func:`bdg_estep` runs a restart over the rows of a g1
+    plan's CSR ``offsets`` (``G1Plan.offsets``), under the kernel's rule
+    (``csrc/em_bdg.cu``): each piece of ``piece_rows`` rows
+    (:func:`bdg_pieces`) is cut into tiles of up to ``tile`` consecutive
+    rows, each cut only at the piece's end or at the end of the second gene
+    block it touches.  A pure host function: the fit does not call it."""
+    off = np.asarray(offsets, np.int64)
+    n_blocks = off.size - 1
+    tiles = crossing = cut = 0
+    for r0 in range(0, n_rows, piece_rows):
+        r1 = min(n_rows, r0 + piece_rows)
+        qa = int(np.searchsorted(off[:n_blocks], r0, side="right")) - 1
+        row0 = r0
+        while row0 < r1:
+            while off[qa + 1] <= row0:
+                qa += 1
+            ea, e = off[qa + 1], min(row0 + tile, r1)
+            if e > ea:
+                qb = qa + 1
+                while off[qb + 1] <= ea:
+                    qb += 1
+                crossing += 1
+                if off[qb + 1] < e:
+                    e = int(off[qb + 1])
+                    cut += 1
+            tiles += 1
+            row0 = e
+    return TileCensus(tiles, crossing, cut)
+
+
 def bdg_pieces(n_rows: int, n_samples: int, tile: int, n_sm: int) -> Tuple[int, int]:
     """(rows per piece, pieces): pieces of whole tiles for ~8 blocks an SM
     across the S restarts.  A pure function of the rows, S, the tile and
@@ -192,13 +232,40 @@ def require_g1_plan(batch: Batch) -> None:
     em_bd.require_plan(batch, KERNEL_NAME)
 
 
+def tile_ordered_cross(v, x, max_elems: int = 1 << 25):
+    """v^T x over the rows ([..., B, I] and [..., B, J] to [..., I, J]),
+    summed over tiles of 64 consecutive rows, each tile's rows in row
+    order, then the tiles in order, as the kernel orders its sums: products
+    and adds of whole tensors only, so the order of every sum, and the bits,
+    do not depend on the CPU (a CPU matmul's order depends on the BLAS's
+    code path for the CPU).  Tiles go in groups of at most ``max_elems``
+    partial sums."""
+    lead, B, I, J = v.shape[:-2], v.shape[-2], v.shape[-1], x.shape[-1]
+    tile = em_bdr.TILES[0]
+    n_tiles = -(-B // tile)
+    pad = n_tiles * tile - B  # zero rows add exact zeros
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(lead + (n_tiles, tile, I, 1))
+    x = torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(lead + (n_tiles, tile, 1, J))
+    out = torch.zeros(lead + (I, J), dtype=v.dtype, device=v.device)
+    per = max(1, max_elems // max(1, v[..., 0, 0, :, :].numel() * J))
+    for t0 in range(0, n_tiles, per):
+        part = v[..., t0:t0 + per, 0, :, :] * x[..., t0:t0 + per, 0, :, :]
+        for i in range(1, tile):
+            part += v[..., t0:t0 + per, i, :, :] * x[..., t0:t0 + per, i, :, :]
+        for j in range(part.shape[-3]):
+            out += part[..., j, :, :]
+    return out
+
+
 def bdg_estep_reference(thetas, ps, batch: Batch, wb1: int = DEFAULT_WB1):
-    """The plain version of :func:`bdg_estep`."""
+    """The plain version of :func:`bdg_estep`, its cross-stats summed by
+    :func:`tile_ordered_cross`."""
     S, G, K = thetas.shape
     gene1 = em_bd._plan_genes(batch.g1_lid, batch.g1_offsets, wb1)
     trip = torch.stack([gene1.to(batch.triplets.dtype), batch.triplets[:, 1],
                         batch.triplets[:, 2]], dim=1)
-    vals, p_hat, loglik = position_marginals(thetas, ps, batch._replace(triplets=trip))
+    vals, p_hat, loglik = position_marginals(thetas, ps, batch._replace(triplets=trip),
+                                             tile_ordered_cross)
     theta_hat = segment_rows(vals[:1], gene1.unsqueeze(1), G)
     return em_bd.stack_streams(vals[1:]), theta_hat, p_hat, loglik
 
@@ -224,7 +291,7 @@ def bdg_estep(thetas, ps, batch: Batch, wb1: int = DEFAULT_WB1):
     if tile is None:
         raise ValueError(f"{ESTEP_NAME} does not take K={K}, R={R}, wb1={wb1} "
                          f"(K must be 1..{em_bdr.MAX_K} and p[s] and two [wb1, K] "
-                         "blocks must fit shared memory)")
+                         "accumulator slots must fit shared memory)")
     if S > 65535:
         raise ValueError(f"{ESTEP_NAME} takes at most 65535 restarts, got {S}")
     smem = _smem_bytes(K, R, tile, wb1)
