@@ -1262,3 +1262,45 @@ def test_k1_streams_form_gives_the_same_bits_and_the_stats(dev, monkeypatch):
     for x, y, z in zip(a, b, private):
         assert torch.equal(x, y)
         np.testing.assert_allclose(x.cpu(), z.cpu(), rtol=1e-5, atol=1e-5)
+
+
+def _hub_pairs(g, n_pairs, shared):
+    """Query pairs (two genes each) whose genes ``bucket_of`` sends to one
+    warp (``shared``) or to two."""
+    buckets = (np.arange(g, dtype=np.int64) * em_bdr.BUCKET_HASH & 0xFFFFFFFF) >> (
+        32 - em_bdr.BUCKET_BITS)
+    pairs, free = [], list(range(g))
+    while len(pairs) < n_pairs:
+        a = free.pop(0)
+        b = next(x for x in free if (buckets[x] == buckets[a]) == shared)
+        free.remove(b)
+        pairs.append((a, b))
+    return pairs, free
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_k1_on_hub_tiles_matches_plain_and_keeps_its_bits(dev, shared):
+    """Data S1's layout (each query pair crossed to every array gene, rows
+    in query order): every 64-row tile holds its pair's two genes 64 times
+    each, two hub keys in one warp where ``shared``.  K = 10, R = 2, S = 2
+    against the plain sweep in float64 at test_k1_row_pass_matches_plain's
+    tolerances, and the same bits from two launches."""
+    g, k, r, s, n_array = 400, 10, 2, 2, 150
+    pairs, free = _hub_pairs(g, 3, shared)
+    array = np.asarray(free[:n_array])
+    trip = np.asarray([(a, b, c) for a, b in pairs for c in array], np.int32)
+    rng = np.random.default_rng(5)
+    rat = (rng.random(len(trip)) < 0.1).astype(np.int32)
+    tb = make_batch(trip, rat, np.ones(len(trip), np.float32), dev)
+    census = em_bdr.key_census(trip, np.ones(len(trip)), s, k, r,
+                               em_bdr.sm_count(dev))
+    assert census.chain_max >= 60
+    st = init_state(g, k, r, samples=s, seed=9, device=dev)
+    out = em_bdr.em_ensemble_stats(st.theta, st.p, tb)
+    again = em_bdr.em_ensemble_stats(st.theta, st.p, tb)
+    ref = em_bdr.em_ensemble_stats_reference(
+        st.theta.double(), st.p.double(), tb._replace(weights=tb.weights.double()))
+    torch.cuda.synchronize()
+    _assert_close_stats(out, type(ref)(*(x.float() for x in ref)))
+    for x, y in zip(out, again):
+        assert torch.equal(x, y)

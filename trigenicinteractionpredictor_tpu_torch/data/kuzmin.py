@@ -32,6 +32,7 @@ import numpy as np
 from trigenicinteractionpredictor_tpu_torch.config import DataConfig
 from trigenicinteractionpredictor_tpu_torch.data.packing import TripletDataset
 from trigenicinteractionpredictor_tpu_torch.utils.logging import get_logger
+from trigenicinteractionpredictor_tpu_torch.utils.tracing import span
 
 # Column-name aliases, matched case-insensitively after whitespace squeeze.
 _QUERY_COLS = ("query strain id", "query strain", "query")
@@ -190,17 +191,20 @@ def load_kuzmin_tsv(path: str, cfg: Optional[DataConfig] = None) -> TripletDatas
     Trigenic rows come from the native tokenizer (``native/binding.py``);
     its build or parse errors raise.  Digenic rows (pair extraction lives
     here) and hosts with no g++ on ``PATH`` (logged) take the
-    pure-Python parser.
+    pure-Python parser.  Spans: ``data.parse`` (the file to name rows),
+    ``data.pack`` (name rows to the packed arrays).
     """
     from trigenicinteractionpredictor_tpu_torch.native import binding
 
     cfg = cfg or DataConfig()
-    if _arity(cfg) == 3:
-        if binding.compiler() is not None:
-            return TripletDataset.from_rows(binding.parse_kuzmin_file(path, cfg),
-                                            n_ratings=cfg.n_ratings)
-        get_logger().log("native_tokenizer", available=False,
-                         reason="no g++ on PATH; using the Python parser")
-    with open(path, "r", newline="") as fh:
-        rows = parse_kuzmin_rows(fh, cfg)
-    return TripletDataset.from_rows(rows, n_ratings=cfg.n_ratings, arity=_arity(cfg))
+    with span("data.parse"):
+        if _arity(cfg) == 3 and binding.compiler() is not None:
+            rows = binding.parse_kuzmin_file(path, cfg)
+        else:
+            if _arity(cfg) == 3:
+                get_logger().log("native_tokenizer", available=False,
+                                 reason="no g++ on PATH; using the Python parser")
+            with open(path, "r", newline="") as fh:
+                rows = parse_kuzmin_rows(fh, cfg)
+    with span("data.pack"):
+        return TripletDataset.from_rows(rows, n_ratings=cfg.n_ratings, arity=_arity(cfg))

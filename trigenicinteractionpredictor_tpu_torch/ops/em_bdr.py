@@ -19,8 +19,9 @@ along a gene-sorted plan built on the card.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from trigenicinteractionpredictor_tpu_torch.ops import _build, block_sum
@@ -147,6 +148,68 @@ def sweep_grid(n_rows: int, n_samples: int, k: int, n_ratings: int,
 
 def sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# csrc/em_tile.cuh keyed_sum: a bucket (one warp) a key by bucket_of's
+# multiplicative hash, rounds of a warp's 32 entries.
+BUCKET_BITS = 3
+BUCKET_HASH = 2654435761
+
+
+class KeyCensus(NamedTuple):
+    """What K1's key sum (``tip::keyed_sum`` in ``add_marginals``) does a
+    restart: ``tiles`` it runs, the distinct keys (genes) a tile holds,
+    and the longest serial chain a tile, the most marginals one lane sums
+    one after another over the tile's rounds, taking the largest over the
+    warps; ``keys`` and ``chain`` are means over the tiles."""
+
+    tiles: int
+    keys: float
+    chain: float
+    chain_max: int
+
+
+def _warp_chain(keys: np.ndarray, k: int) -> int:
+    """The most marginals one lane of a warp sums for the warp's entries
+    ``keys`` (in entry order), as ``keyed_sum`` walks them: per round of 32
+    entries, groups of one key (led by the key's first lane, in lane
+    order) spread as items (group, k) over the lanes, item i on lane i %
+    32, and each item sums its group's entries one after another."""
+    load = np.zeros(32, np.int64)
+    for r in range(0, keys.size, 32):
+        _, first, counts = np.unique(keys[r:r + 32], return_index=True, return_counts=True)
+        sizes = np.repeat(counts[np.argsort(first)], k)
+        load += np.bincount(np.arange(sizes.size) % 32, weights=sizes,
+                            minlength=32).astype(np.int64)
+    return int(load.max())
+
+
+def key_census(triplets, weights, n_samples: int, k: int, n_ratings: int,
+               n_sm: int) -> KeyCensus:
+    """K1's key sum over these rows, walked as ``sweep_grid`` and the
+    kernel cut them (blocks of whole tiles, a block's last tile short):
+    per tile the entries e = 3 row + position of the rows of nonzero
+    weight, keyed by gene, each key in the warp ``bucket_of`` gives it.
+    Every restart runs the same tiles.  A pure host function: the fit
+    does not call it."""
+    tile = sweep_plan(k, n_ratings)[0]
+    trip = np.asarray(triplets, np.int64)
+    keys = np.where(np.asarray(weights)[:, None] != 0, trip, -1)
+    buckets = ((keys * BUCKET_HASH) & 0xFFFFFFFF) >> (32 - BUCKET_BITS)
+    n = trip.shape[0]
+    rows_per_block, blocks = sweep_grid(n, n_samples, k, n_ratings, n_sm)
+    distinct, chains = [], []
+    for b in range(blocks):
+        end = min(n, (b + 1) * rows_per_block)
+        for row0 in range(b * rows_per_block, end, tile):
+            kt = keys[row0:min(row0 + tile, end)].reshape(-1)
+            bt = buckets[row0:min(row0 + tile, end)].reshape(-1)
+            live = kt >= 0
+            distinct.append(np.unique(kt[live]).size)
+            chains.append(max(_warp_chain(kt[live & (bt == w)], k)
+                              for w in range(1 << BUCKET_BITS)))
+    return KeyCensus(len(chains), float(np.mean(distinct)), float(np.mean(chains)),
+                     int(max(chains)))
 
 
 def sweep_launch(thetas, ps, batch: Batch, name: str, streams=None, plan=None):
